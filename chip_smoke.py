@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+  python3 chip_smoke.py
+
+1. Device: the card's name and power limit; build the CUDA kernels from
+   src/repro_torch/kernels/decode_attention/csrc with nvcc (sm_90a).
+2. Kernels at the demo LM's widths (H 12, Hkv 4, dh 64): the dense (B1)
+   and paged (B2) decode-attention kernels against their plain PyTorch
+   versions, at the serve run's shapes (B 16, M 512, kv_len <= 232, a
+   256-page pool) and at B 8 and 64 with M 1024, ragged kv_len (0,
+   non-multiples of 32, full rows), bf16 and f32;
+   B2 == B1 bitwise for page sizes 16 and 64, and B2 bitwise unchanged by
+   a NaN-filled trash page.  Times with CUDA events, L2 flushed before
+   every call, beside the HBM bound, the plain version and SDPA.
+3. Serve: suncatcher-lm-100m at full width in bf16, random weights from a
+   seed, through ServingEngine: 32 requests on 16 slots, max_len 512,
+   decode_block 8, prompts of 4-200 tokens with shared heads; dense and
+   paged (page 16, pool half the dense footprint, prefix cache 8), greedy
+   and at temperature 0.7.  Every request completes, paged == dense token
+   streams, each kernel launched n_layers x sub-steps times, no host sync
+   inside a decode block (the engine runs it under sync debug mode
+   "error").
+   One more dense run under torch.profiler: device busy share, top
+   kernels by device time.
+4. Reference: a small config (reduced widths, head_dim 64) in f32 on the
+   card against the same model on the CPU, logits within 1e-3.
+
+Exits non-zero on any failed check or without a CUDA device.  The last
+line is {"ok": true, "device": {...}}; the line before it is the card's
+name and power limit, and before that one JSON line per kernel.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
+            "float32": 67e12}      # f32 outside the tensor cores
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+H, HKV, DH = 12, 4, 64
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+class Timer:
+    """Per-call device time from CUDA events, with L2 flushed before each
+    call.  The card first spins long enough for the host to queue every
+    call, so the events time the device, not the host's launch path."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, iters=50):
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)      # ~50 ms of device spin
+        for s, e in ev:
+            self.flush.zero_()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def bound(lens, ps, dtype, itemsize, b):
+    """Least time for the same work: each input byte read once, each output
+    byte written once, or the operations at the card's peak, the larger."""
+    kv = sum(lens)
+    nbytes = 2 * kv * HKV * DH * itemsize + 2 * b * H * DH * itemsize + 4 * b
+    if ps:
+        nbytes += 4 * sum(-(-n // ps) for n in lens)
+    ops = 4 * kv * H * DH
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_phase(torch, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference, paged_decode_attention,
+        paged_decode_attention_reference)
+    dev = torch.device("cuda")
+    main = {}
+    # (B, M, kv_len ceiling, pool pages at page 16): the serve run's shape
+    # (its kv_len <= 200 + 32 and pool of 256 pages), then two wider
+    # cases with full-length rows
+    for b, m, cap, pool16 in ((16, 512, 232, 256), (8, 1024, 1024, None),
+                              (64, 1024, 1024, None)):
+        main_case = (b, m) == (16, 512)
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            g = torch.Generator().manual_seed(b * 7 + m)
+            q = torch.randn(b, H, DH, generator=g).to(dev, dt)
+            kc = torch.randn(b, m, HKV, DH, generator=g).to(dev, dt)
+            vc = torch.randn(b, m, HKV, DH, generator=g).to(dev, dt)
+            lens_l = torch.randint(1, cap + 1, (b,), generator=g).tolist()
+            lens_l[:4] = [0, 33, cap, cap - 1]
+            lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+            out = decode_attention(q, kc, vc, lens)
+            ref = decode_attention_reference(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            check(bool(torch.isfinite(out).all()), f"B1 non-finite {b}x{m}")
+            check(err <= TOL[dtype], f"B1 {dtype} B={b} M={m}: max abs err "
+                  f"{err} > {TOL[dtype]}")
+            check(bool((out[0] == 0).all()), "B1 kv_len == 0 row not zero")
+            line = (f"  B={b:3d} M={m} {dtype:8s} B1 err {err:.3e} "
+                    f"(tol {TOL[dtype]})")
+            perr = {}
+            for ps in (16, 64):
+                # each row's live pages on distinct, shuffled physical
+                # pages; every other table entry is the trash page
+                mp = m // ps
+                rows_, cols_ = zip(*[(r, j) for r, n in enumerate(lens_l)
+                                     for j in range(-(-n // ps))])
+                n_pool = pool16 if ps == 16 and pool16 else b * mp
+                check(len(rows_) <= n_pool, "pool too small for the case")
+                phys = torch.randperm(n_pool, generator=g)[:len(rows_)]
+                rows_t = torch.tensor(rows_, device=dev)
+                cols_t = torch.tensor(cols_, device=dev)
+                phys = phys.to(dev)
+                kp = torch.zeros(n_pool + 1, ps, HKV, DH, dtype=dt,
+                                 device=dev)
+                vp = torch.zeros_like(kp)
+                kp[phys] = kc.reshape(b, mp, ps, HKV, DH)[rows_t, cols_t]
+                vp[phys] = vc.reshape(b, mp, ps, HKV, DH)[rows_t, cols_t]
+                ptab = torch.full((b, mp), n_pool, dtype=torch.int32,
+                                  device=dev)
+                ptab[rows_t, cols_t] = phys.to(torch.int32)
+                paged = paged_decode_attention(q, kp, vp, ptab, lens)
+                check(torch.equal(paged, out),
+                      f"B2 != B1 bitwise (ps {ps}, B={b}, M={m}, {dtype})")
+                unref = torch.ones(n_pool + 1, dtype=torch.bool, device=dev)
+                unref[phys] = False
+                kp[unref] = float("nan")
+                vp[unref] = float("nan")
+                poisoned = paged_decode_attention(q, kp, vp, ptab, lens)
+                check(torch.equal(poisoned, out),
+                      f"B2 changed by a NaN trash page (ps {ps})")
+                kp, vp = kp.nan_to_num(0.0), vp.nan_to_num(0.0)
+                pref = paged_decode_attention_reference(q, kp, vp, ptab,
+                                                        lens)
+                perr[ps] = (paged.float() - pref.float()).abs().max().item()
+                check(perr[ps] <= TOL[dtype], f"B2 err {perr[ps]} (ps {ps})")
+                if ps == 16 and main_case and dtype == "bfloat16":
+                    main["paged"] = (q, kp, vp, ptab, lens, lens_l, ps,
+                                     perr[ps])
+            print(line + f" | B2 err ps16 {perr[16]:.3e} ps64 "
+                  f"{perr[64]:.3e} | B2 == B1 bitwise, NaN trash invariant",
+                  flush=True)
+            if main_case and dtype == "bfloat16":
+                main["dense"] = (q, kc, vc, lens, lens_l, err)
+
+    # times at the serve run's shape (B 16, M 512, bf16)
+    rows = []
+    q, kc, vc, lens, lens_l, err = main["dense"]
+    mask = (torch.arange(kc.shape[1], device=dev)[None] <
+            lens[:, None])[:, None, None, :]
+    q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    b1_ms = timer.ms(lambda: decode_attention(q, kc, vc, lens))
+    plain_ms = timer.ms(lambda: decode_attention_reference(q, kc, vc, lens),
+                        iters=20)
+    sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    bms, by = bound(lens_l, 0, "bfloat16", 2, q.shape[0])
+    rows.append({"name": "decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                           "decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention/"
+                             "kernel.py:45",
+                 "max_abs_err": err, "ms": b1_ms, "plain_ms": plain_ms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms})
+    q, kp, vp, ptab, lens, lens_l, ps, perr = main["paged"]
+    b2_ms = timer.ms(lambda: paged_decode_attention(q, kp, vp, ptab, lens))
+    plain2_ms = timer.ms(lambda: paged_decode_attention_reference(
+        q, kp, vp, ptab, lens), iters=20)
+    bms, by = bound(lens_l, ps, "bfloat16", 2, q.shape[0])
+    rows.append({"name": "paged_decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                           "decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention/"
+                             "paged.py:47",
+                 "max_abs_err": perr, "ms": b2_ms, "plain_ms": plain2_ms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    for r in rows:
+        print(f"  {r['name']} @ B=16 M=512 bf16 (ps 16 for B2): "
+              f"{r['ms'] * 1e3:.2f} us | bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}) | plain {r['plain_ms'] * 1e3:.2f} us | "
+              f"SDPA {r['library_ms'] and r['library_ms'] * 1e3}", flush=True)
+    return rows
+
+
+def serve_phase(torch):
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    dev = torch.device("cuda")
+    cfg = registry.get_config("suncatcher-lm-100m")
+    fns = registry.model_fns(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg, dev)
+    slots, max_len, block, n_req, max_new = 16, 512, 8, 32, 32
+    rng = np.random.default_rng(0)
+    heads = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (32, 48)]
+    prompts = []
+    for i in range(n_req):
+        tail = rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(4, 153))).astype(np.int32)
+        prompts.append(np.concatenate([heads[i % 2], tail]) if i % 4 < 2
+                       else tail)
+    check(min(map(len, prompts)) >= 4 and max(map(len, prompts)) <= 200,
+          "prompt lengths outside 4-200")
+    dense_pages = slots * max_len // 16
+
+    def run(page_size, temp):
+        ecfg = EngineConfig(max_batch=slots, max_len=max_len,
+                            decode_block=block, page_size=page_size,
+                            pool_pages=dense_pages // 2 if page_size else None,
+                            prefix_cache=8 if page_size else 0)
+        eng = ServingEngine(cfg, fns, params, ecfg)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=max_new,
+                               temperature=temp))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_attention.launches = 0
+        paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = (decode_attention.launches,
+                    paged_decode_attention.launches)
+        return eng, done, dt, launches
+
+    run(0, 0.0)                       # warm-up: cuBLAS handles, allocator
+    totals = [0, 0]
+    results = {}
+    for temp in (0.0, 0.7):
+        for page_size in (0, 16):
+            eng, done, dt, launches = run(page_size, temp)
+            s = eng.stats
+            check(len(done) == n_req and all(
+                len(r.generated) == max_new for r in done),
+                f"not every request completed (page {page_size}, T {temp})")
+            sub = s["decode_blocks"] * block
+            want = (cfg.n_layers * sub, 0) if not page_size \
+                else (0, cfg.n_layers * sub)
+            check(launches == want, f"kernel launches {launches} != "
+                  f"{want} (n_layers x {sub} sub-steps)")
+            totals[0] += launches[0]
+            totals[1] += launches[1]
+            results[(page_size, temp)] = {r.uid: r.generated for r in done}
+            extra = ""
+            if page_size:
+                ps = eng.page_stats()
+                check(ps["device_live"] == ps["pool_pages"] - ps["host_free"],
+                      "pages leaked: only prefix-cache pins may stay live")
+                extra = (f" | pool {ps['pool_pages']} pages, "
+                         f"{s['prefix_hits']} prefix hits, "
+                         f"{s['pages_shared']} pages shared, "
+                         f"{s['admission_stalls']} admission stalls, "
+                         f"{ps['device_live']} live after drain")
+            print(f"  serve {'paged' if page_size else 'dense'} T={temp}: "
+                  f"{s['tokens']} tokens in {dt:.3f} s = "
+                  f"{s['tokens'] / dt:.1f} tok/s | "
+                  f"{s['host_syncs'] / s['tokens']:.4f} host syncs/token | "
+                  f"{s['decode_blocks']} blocks | launches B1 {launches[0]} "
+                  f"B2 {launches[1]} | peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+                  + extra, flush=True)
+            del eng, done         # the next run's peak memory is its own
+        check(results[(16, temp)] == results[(0, temp)],
+              f"paged != dense token streams at T={temp}")
+        print(f"  T={temp}: paged == dense token streams (bitwise)",
+              flush=True)
+    differ = sum(a != b for uid in results[(0, 0.0)] for a, b in
+                 zip(results[(0, 0.0)][uid], results[(0, 0.7)][uid]))
+    print(f"  T=0.7 vs greedy: {differ} of {n_req * max_new} tokens differ "
+          f"(random weights give near one-hot logits)", flush=True)
+    profile_run(torch, run)
+
+    # full-width logits: finite, of the expected shape
+    cache = fns.init_cache(cfg, 2, 64, device=dev)
+    logits, _ = fns.decode_step(params, cache, torch.tensor(
+        [[1, 2, 3], [4, 5, 6]], device=dev), cfg)
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "full-width logits")
+    return totals
+
+
+def profile_run(torch, run):
+    """One dense greedy serve run under torch.profiler: device busy share
+    of the wall time and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall, _ = run(0, 0.0)
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy == 0:
+        print("  profiler: no device time recorded", flush=True)
+        return
+    print(f"  profile (dense, greedy): wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}",
+          flush=True)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.self_device_time_total / 1e6 / busy:6.1%} x{e.count:<6d} "
+              f"{e.key[:90]}", flush=True)
+
+
+def reference_phase(torch):
+    """Small config (the reduced widths with head_dim 64, which the
+    kernels take), f32: decode on the card == decode on the CPU."""
+    from repro_torch.models import registry
+    cfg = registry.get_reduced_config("suncatcher-lm-100m",
+                                      compute_dtype="float32", head_dim=64)
+    fns = registry.model_fns(cfg)
+    cpu = fns.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.cuda()) for k, v in cpu.items()}
+    caches = {d: fns.init_cache(cfg, 2, 64, device=d)
+              for d in ("cpu", "cuda")}
+    for c in caches.values():
+        c["pos"] = torch.zeros(2, dtype=torch.int32, device=c["k"].device)
+    toks = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+                          19, 20], [7] * 16])
+    last = torch.tensor([15, 4])
+    worst = 0.0
+    lc, caches["cpu"] = fns.decode_step(cpu, caches["cpu"], toks, cfg,
+                                        last_idx=last)
+    lg, caches["cuda"] = fns.decode_step(gpu, caches["cuda"], toks.cuda(),
+                                         cfg, last_idx=last.cuda())
+    caches["cpu"]["pos"] = torch.tensor([16, 5], dtype=torch.int32)
+    caches["cuda"]["pos"] = caches["cpu"]["pos"].cuda()
+    for _ in range(4):
+        worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        nxt = lc.argmax(-1, keepdim=True)
+        lc, caches["cpu"] = fns.decode_step(cpu, caches["cpu"], nxt, cfg)
+        lg, caches["cuda"] = fns.decode_step(gpu, caches["cuda"], nxt.cuda(),
+                                             cfg)
+    worst = max(worst, (lg.cpu() - lc).abs().max().item())
+    check(worst <= 1e-3, f"card vs CPU logits differ by {worst}")
+    print(f"  reduced config f32, prefill + 4 decode steps: card vs CPU "
+          f"logits max abs err {worst:.3e} (tol 1e-3)", flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels.decode_attention import kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"device: {name} | {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    print("phase 1: build", flush=True)
+    kernel.build()
+    print(f"  nvcc build {kernel._Build.seconds:.1f} s", flush=True)
+    for ln in kernel._Build.log.splitlines():
+        if "registers" in ln or "spill" in ln:
+            print("  " + ln.strip(), flush=True)
+
+    print("phase 2: kernels vs plain versions", flush=True)
+    rows = kernel_phase(torch, Timer(torch))
+
+    print("phase 3: serve suncatcher-lm-100m (full width, bf16)", flush=True)
+    totals = serve_phase(torch)
+    rows[0]["launches"], rows[1]["launches"] = totals
+    check(all(r["launches"] > 0 for r in rows), "a kernel never launched")
+
+    print("phase 4: reference check", flush=True)
+    reference_phase(torch)
+
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

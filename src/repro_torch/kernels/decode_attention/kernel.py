@@ -1,0 +1,165 @@
+"""Build, load and launch the decode-attention CUDA kernels (B1 dense, B2
+paged) from `csrc/decode_attention.cu`.
+
+The source has a plain C interface: `nvcc` compiles it for `sm_90a` into a
+shared library under `build/` beside this file at first use, and `ctypes`
+loads it.  Nothing here runs at import, so the CPU tests import this module
+freely.  A build that fails raises with the compiler's output; a launch
+that CUDA refuses raises with its error code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+
+class _Build:
+    """The loaded library and what `nvcc` said while building it."""
+    lib = None
+    log = ""
+    seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the "
+                       "decode-attention kernels")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source content) and load the kernel library."""
+    if _Build.lib is not None:
+        return _Build.lib
+    t0 = time.perf_counter()
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"decode_attention_{digest}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(SOURCE)], capture_output=True, text=True)
+        _Build.log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{SOURCE.name}:\n{_Build.log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            ctypes.c_float, p]
+    lib.decode_attention_launch.restype = i
+    lib.paged_decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i,
+                                                  i, i, i, i, ctypes.c_float,
+                                                  p]
+    lib.paged_decode_attention_launch.restype = i
+    _Build.lib = lib
+    _Build.seconds = time.perf_counter() - t0
+    return lib
+
+
+def _check(q, k, v, kv_len, extra=()):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"decode attention kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    dh = q.shape[-1]
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"decode attention kernel takes head_dim in "
+                         f"{_HEAD_DIMS}, got {dh}")
+    if not q.is_cuda:
+        raise ValueError(f"decode attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("kv_len", kv_len),
+                    *extra):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def decode_attention_fwd(q, k_cache, v_cache, kv_len):
+    """B1.  q (B, H, dh); k/v_cache (B, M, Hkv, dh); kv_len (B,) int32 on
+    the card.  Returns (B, H, dh) in q's dtype."""
+    b, h, dh = q.shape
+    m, hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape != (b, m, hkv, dh) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if h % hkv or kv_len.shape != (b,):
+        raise ValueError(f"bad heads ({h} vs {hkv}) or kv_len shape "
+                         f"{tuple(kv_len.shape)}")
+    _check(q, k_cache, v_cache, kv_len)
+    lib = build()
+    out = torch.empty_like(q)
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), b, hkv, h // hkv, m, dh,
+        _DTYPES[q.dtype], dh ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "decode_attention")
+    return out
+
+
+def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):
+    """B2.  q (B, H, dh); k/v_pages (P+1, ps, Hkv, dh); page_table
+    (B, max_pages) int32; kv_len (B,) int32, all on the card.  Returns
+    (B, H, dh) in q's dtype."""
+    b, h, dh = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    if k_pages.shape[3] != dh or v_pages.shape != k_pages.shape:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if h % hkv or kv_len.shape != (b,) or page_table.dim() != 2 \
+            or page_table.shape[0] != b:
+        raise ValueError(f"bad heads ({h} vs {hkv}), kv_len "
+                         f"{tuple(kv_len.shape)} or page table "
+                         f"{tuple(page_table.shape)}")
+    if page_table.dtype != torch.int32:
+        raise TypeError(f"page_table must be int32, got {page_table.dtype}")
+    _check(q, k_pages, v_pages, kv_len, extra=(("page_table", page_table),))
+    lib = build()
+    out = torch.empty_like(q)
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        kv_len.data_ptr(), page_table.data_ptr(), out.data_ptr(), b, hkv,
+        h // hkv, ps, page_table.shape[1], dh, _DTYPES[q.dtype], dh ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "paged_decode_attention")
+    return out

@@ -1,0 +1,332 @@
+"""DecodeState specs for the serving engine: the transformer KV family,
+dense and paged.
+
+A spec tells the engine how to allocate the per-slot state
+(`init_state`), advance it one token (`decode`), prefill a ragged bucket
+(`prefill`, admit-masked), hold inactive rows (`freeze`), and, for the
+paged layout, map and free pages (`advance`, `release`).  The paged
+allocator (a free-page stack, its top and per-page refcounts) is device
+tensors updated by whole-batch tensor ops, so alloc and free run inside
+the engine's decode block with no host round-trip.
+
+Large buffers (the dense cache, the page pools) are written in place; the
+small bookkeeping tensors (pos, page table, free stack, refcounts, prefix
+table) are replaced, never mutated, so `freeze` can still read the values
+from before a sub-step.  The migration and delta hooks of the reference
+wait for the router slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import transformer as _transformer
+from .transformer import TransformerConfig
+
+
+def _bcast(vec, ndim: int, ax: int):
+    """Reshape a (B,) vector to broadcast against a leaf whose slot axis
+    is `ax`."""
+    shape = [1] * ndim
+    shape[ax] = vec.shape[0]
+    return vec.reshape(shape)
+
+
+def admit_merge(state, fresh, axes, admit):
+    """Overwrite `admit`-masked slot rows of `state` with `fresh` rows
+    (dicts of tensors with matching keys; `axes` gives each slot axis)."""
+    return {k: torch.where(_bcast(admit, state[k].dim(), axes[k]), fresh[k],
+                           state[k]) for k in state}
+
+
+def _set_drop(dst, idx, vals):
+    """`dst.at[idx].set(vals, mode="drop")` along axis 0: entries whose
+    index is >= len(dst) are dropped."""
+    n = dst.shape[0]
+    ext = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    ext[idx.clamp(max=n).long()] = vals
+    return ext[:n]
+
+
+# --------------------------------------------------------------------------
+# paged-pool primitives
+# --------------------------------------------------------------------------
+def _alloc_rows(ptab, free, top, ref, take):
+    """Pop one page per True entry of `take` (B, max_pages) off the free
+    stack into the matching page-table entries, refcount 1 each.  Entries
+    are numbered row-major by an exclusive cumsum, so a batch of
+    allocations is one gather and one scatter.  The host's admission
+    gating guarantees the stack holds enough pages."""
+    t32 = take.to(torch.int32)
+    flat = t32.reshape(-1)
+    off = (torch.cumsum(flat, 0, dtype=torch.int32) - flat).reshape(
+        take.shape)
+    pool = free.shape[0]
+    pid = free[torch.clamp(top - 1 - off, 0, pool - 1).long()]
+    ptab2 = torch.where(take, pid, ptab)
+    ref2 = ref.index_add(0, torch.where(take, pid, pool).reshape(-1).long(),
+                         flat)
+    return ptab2, ref2, top - flat.sum(dtype=torch.int32)
+
+
+def _release_rows(ptab, free, top, ref, drop):
+    """Decref every mapped page of `drop`-masked rows; pages whose count
+    reaches zero go back on the free stack (once each, even when two
+    dropped rows share them) and the rows' entries reset to the trash id.
+    Prefix-cache pins hold an extra reference."""
+    pool = free.shape[0]
+    trash = pool
+    dec = drop[:, None] & (ptab != trash)
+    ref2 = ref.index_add(0, torch.where(dec, ptab, trash).reshape(-1).long(),
+                         -dec.to(torch.int32).reshape(-1))
+    pages = torch.arange(pool + 1, dtype=torch.int32, device=ref.device)
+    became = (ref2 == 0) & (ref > 0) & (pages < pool)
+    b32 = became.to(torch.int32)
+    rank = torch.cumsum(b32, 0, dtype=torch.int32) - b32
+    dst = torch.where(became, top + rank, pool)
+    free2 = _set_drop(free, dst, pages.to(free.dtype))
+    ptab2 = torch.where(drop[:, None], trash, ptab)
+    return ptab2, free2, top + b32.sum(dtype=torch.int32), ref2
+
+
+def _gather_logical(pool, ptab):
+    """(L, P+1, ps, Hkv, dh) pool + (B, max_pages) table -> the logical
+    dense layout (L, B, max_pages*ps, Hkv, dh)."""
+    g = pool[:, ptab.long()]                    # (L, B, MP, ps, Hkv, dh)
+    b, mp = ptab.shape
+    return g.reshape(pool.shape[0], b, mp * pool.shape[2], *pool.shape[3:])
+
+
+def _scatter_logical(pool, ptab, vals, write):
+    """Write logical rows `vals` (L, B, M, Hkv, dh) into mapped pages, in
+    place: position t of row b lands at (ptab[b, t//ps], t%ps).  Entries
+    with write == False go to the trash page."""
+    ps = pool.shape[2]
+    b, m = write.shape
+    t = torch.arange(m, device=pool.device)
+    pid = torch.where(write, ptab[:, t // ps], pool.shape[1] - 1)
+    off = (t % ps).expand(b, m)
+    pool[:, pid.long(), off] = vals.to(pool.dtype)
+    return pool
+
+
+# --------------------------------------------------------------------------
+# specs
+# --------------------------------------------------------------------------
+class TransformerDecodeState:
+    """KV family: (L, B, M, Hkv, dh) cache rows plus a per-row pos."""
+
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def init_state(self, batch, max_len, dtype=None):
+        st = _transformer.init_cache(self.cfg, batch, max_len, dtype,
+                                     device=self.device)
+        st["pos"] = torch.zeros((batch,), dtype=torch.int32,
+                                device=self.device)
+        return st
+
+    def decode(self, params, state, last):
+        return _transformer.decode_step(params, state, last, self.cfg)
+
+    def prefill(self, params, state, tokens, lens, admit, page_ops=None):
+        """Ragged prefill of a (B, bucket) block on a fresh bucket cache;
+        admitted rows' cache prefix and pos are merged into `state`."""
+        b, lb = tokens.shape
+        tmp = self.init_state(b, lb)
+        logits, tmp = _transformer.decode_step(
+            params, tmp, tokens, self.cfg, last_idx=torch.clamp(lens - 1,
+                                                                min=0))
+        w = tmp["k"].shape[2]                  # bucket len, block-aligned
+        adm5 = admit[None, :, None, None, None]
+        for nm in ("k", "v"):
+            head = state[nm][:, :, :w]
+            head.copy_(torch.where(adm5, tmp[nm], head))
+        return logits, {**state, "pos": torch.where(admit, lens,
+                                                    state["pos"])}
+
+    def freeze(self, new, old, active):
+        # inactive rows only write into the masked tail (their pos is
+        # held), so only pos needs the select
+        return {**new, "pos": torch.where(active, new["pos"], old["pos"])}
+
+    def advance(self, state, active):
+        return state
+
+    def release(self, state, drop):
+        return state
+
+
+class PagedTransformerDecodeState(TransformerDecodeState):
+    """Paged KV family: a shared pool of physical pages (L, P+1, ps, Hkv,
+    dh) addressed through a per-row (B, max_pages) int32 page table.
+    Memory tracks live tokens, and identical prompt heads share pages via
+    refcounts.  Invariants:
+      * pages covering [0, pos) of an active row are mapped; entries past
+        ceil(pos/ps) hold the trash id (= pool_pages)
+      * a page is on the free stack iff its refcount is 0
+      * prefix-published pages carry a +1 pin, so they outlive their
+        publisher
+      * host-side admission reserves worst-case pages per request, so the
+        stack never underflows
+    Paged == dense bitwise: positions >= kv_len never enter a sum, and
+    mapped positions hold the values the dense cache holds.
+    """
+
+    def __init__(self, cfg: TransformerConfig, *, page_size: int,
+                 max_batch: int, max_len: int, pool_pages=None,
+                 prefix_entries: int = 0, device="cuda"):
+        super().__init__(cfg, device)
+        if cfg.window is not None:
+            raise ValueError("paged KV serving does not support local "
+                             "(windowed) attention yet")
+        m = -(-max_len // 128) * 128       # same padding as init_cache
+        if m % page_size:
+            raise ValueError(
+                f"page_size {page_size} must divide the padded cache "
+                f"length {m} (max_len {max_len} rounded up to 128)")
+        self.page_size = page_size
+        self.padded_len = m
+        self.max_pages = m // page_size
+        self.pool_pages = (pool_pages if pool_pages is not None
+                           else max_batch * self.max_pages)
+        if self.pool_pages < self.max_pages:
+            raise ValueError(
+                f"pool_pages {self.pool_pages} cannot hold even one "
+                f"max_len row ({self.max_pages} pages)")
+        self.prefix_entries = prefix_entries
+        self._dense = TransformerDecodeState(cfg, device)
+
+    def init_state(self, batch, max_len, dtype=None):
+        dev, trash = self.device, self.pool_pages
+        kp = _transformer.init_paged_pool(self.cfg, self.pool_pages,
+                                          self.page_size, dtype, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        st = {"kp": kp, "vp": torch.zeros_like(kp),
+              "ptab": torch.full((batch, self.max_pages), trash, **i32),
+              "pos": torch.zeros((batch,), **i32),
+              "free": torch.arange(self.pool_pages, **i32),
+              "top": torch.tensor(self.pool_pages, **i32),
+              "ref": torch.zeros((self.pool_pages + 1,), **i32)}
+        if self.prefix_entries:
+            st["pf_tab"] = torch.full((self.prefix_entries, self.max_pages),
+                                      trash, **i32)
+            st["pf_len"] = torch.zeros((self.prefix_entries,), **i32)
+        return st
+
+    def decode(self, params, state, last):
+        return _transformer.paged_decode_step(params, state, last, self.cfg)
+
+    def advance(self, state, active):
+        """Map a fresh page for each active row whose next write position
+        starts a new page (pos % ps == 0)."""
+        ps = self.page_size
+        pos = state["pos"]
+        col = torch.clamp(pos // ps, 0, self.max_pages - 1)
+        need = active & (pos % ps == 0) & (pos // ps < self.max_pages)
+        b = pos.shape[0]
+        take = torch.zeros((b, self.max_pages), dtype=torch.bool,
+                           device=pos.device)
+        take[torch.arange(b, device=pos.device), col.long()] = need
+        ptab, ref, top = _alloc_rows(state["ptab"], state["free"],
+                                     state["top"], state["ref"], take)
+        return {**state, "ptab": ptab, "ref": ref, "top": top}
+
+    def release(self, state, drop):
+        ptab, free, top, ref = _release_rows(
+            state["ptab"], state["free"], state["top"], state["ref"], drop)
+        return {**state, "ptab": ptab, "free": free, "top": top, "ref": ref}
+
+    def live_pages(self, state):
+        """Allocated page count (device scalar)."""
+        return self.pool_pages - state["top"]
+
+    def prefill(self, params, state, tokens, lens, admit, page_ops=None):
+        """Bucketed prefill into the pool: the model runs on a dense
+        bucket cache (the dense engine's logits, bit for bit), then the
+        admitted rows' fresh KV is re-paged.  Shared prefix pages are
+        mapped from the prefix table (+1 ref) instead of re-allocated,
+        fresh pages come off the free stack, and rows flagged for
+        publication pin their head pages into the prefix table.
+
+        `page_ops` (host-side prefix matching): (B,) int32 pf_entry (-1 =
+        no shared prefix), pf_n (shared pages), pf_store (-1 = do not
+        publish), pf_store_n (pages to publish)."""
+        b, lb = tokens.shape
+        tmp = self._dense.init_state(b, lb)
+        logits, tmp = _transformer.decode_step(
+            params, tmp, tokens, self.cfg,
+            last_idx=torch.clamp(lens - 1, min=0))
+
+        ps, mp, trash = self.page_size, self.max_pages, self.pool_pages
+        dev = tokens.device
+        cols = torch.arange(mp, device=dev)[None]
+        ptab = torch.where(admit[:, None], trash, state["ptab"])
+        ref, top = state["ref"], state["top"]
+        if page_ops is None:
+            none = torch.full((b,), -1, dtype=torch.int32, device=dev)
+            page_ops = {"pf_entry": none, "pf_n": none + 1,
+                        "pf_store": none, "pf_store_n": none + 1}
+        pf_entry, pf_n = page_ops["pf_entry"], page_ops["pf_n"]
+        pf_store, pf_store_n = page_ops["pf_store"], page_ops["pf_store_n"]
+
+        new = dict(state)
+        hit = admit & (pf_entry >= 0)
+        shared = torch.where(hit, pf_n, 0)
+        if self.prefix_entries:
+            src = state["pf_tab"][torch.clamp(
+                pf_entry, 0, self.prefix_entries - 1).long()]
+            use = hit[:, None] & (cols < shared[:, None])
+            ptab = torch.where(use, src, ptab)
+            ref = ref.index_add(
+                0, torch.where(use, src, trash).reshape(-1).long(),
+                use.to(torch.int32).reshape(-1))
+
+        # allocate the non-shared remainder of ceil(lens / ps) pages
+        pages_needed = -(-lens // ps)
+        take = admit[:, None] & (cols >= shared[:, None]) & \
+            (cols < pages_needed[:, None])
+        ptab, ref, top = _alloc_rows(ptab, state["free"], top, ref, take)
+
+        # re-page the fresh KV, skipping shared pages (already resident)
+        t = torch.arange(tmp["k"].shape[2], device=dev)[None]
+        write = admit[:, None] & (t >= (shared * ps)[:, None]) & \
+            (t < lens[:, None])
+        new["kp"] = _scatter_logical(state["kp"], ptab, tmp["k"], write)
+        new["vp"] = _scatter_logical(state["vp"], ptab, tmp["v"], write)
+
+        if self.prefix_entries:
+            store = admit & (pf_store >= 0)
+            ents = torch.where(store, pf_store, self.prefix_entries)
+            vals = torch.where(cols < pf_store_n[:, None], ptab, trash)
+            new["pf_tab"] = _set_drop(state["pf_tab"], ents, vals)
+            new["pf_len"] = _set_drop(state["pf_len"], ents, pf_store_n)
+            pin = store[:, None] & (cols < pf_store_n[:, None])
+            ref = ref.index_add(
+                0, torch.where(pin, ptab, trash).reshape(-1).long(),
+                pin.to(torch.int32).reshape(-1))
+
+        new.update(ptab=ptab, ref=ref, top=top,
+                   pos=torch.where(admit, lens, state["pos"]))
+        return logits, new
+
+
+def paged_spec(spec: TransformerDecodeState, *, page_size: int,
+               max_batch: int, max_len: int, pool_pages=None,
+               prefix_entries: int = 0) -> PagedTransformerDecodeState:
+    """Wrap a transformer KV spec's config in the paged-KV spec."""
+    if type(spec) is not TransformerDecodeState:
+        raise ValueError(f"page_size > 0 requires a transformer KV family; "
+                         f"{type(spec).__name__} does not page")
+    return PagedTransformerDecodeState(
+        spec.cfg, page_size=page_size, max_batch=max_batch, max_len=max_len,
+        pool_pages=pool_pages, prefix_entries=prefix_entries,
+        device=spec.device)
+
+
+def decode_spec(cfg, device="cuda") -> TransformerDecodeState:
+    """Config dataclass -> its family's DecodeState spec."""
+    if isinstance(cfg, TransformerConfig):
+        return TransformerDecodeState(cfg, device)
+    raise KeyError(f"no decode-state family registered for config type "
+                   f"{type(cfg).__name__}; ported: TransformerConfig")

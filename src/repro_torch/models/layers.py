@@ -1,0 +1,120 @@
+"""Shared layers of the decoder LM in PyTorch: norms, RoPE, attention, MLP.
+
+`attention` dispatches by shape, never by a switch: a one-row query with a
+`kv_len` and no window goes to the decode-attention kernels (dense, or
+paged when a page table is given), whose wrappers run the CUDA kernel for
+CUDA tensors and the plain version for CPU tensors.  Everything else runs
+`attention_ref`.  The chunked and flash paths of the reference wait for
+the training slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention)
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight).to(dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * weight + bias).to(dtype)
+
+
+def rope_cos_sin(positions, head_dim: int, base: float = 10000.0,
+                 dtype=torch.float32):
+    """positions (..., S) -> cos/sin (..., S, head_dim/2)."""
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=positions.device) / head_dim))
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x, cos, sin):
+    """x (B, S, H, Dh); cos/sin (B, S, Dh/2) or (S, Dh/2)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _qpos(q_offset, sq: int, device):
+    """Absolute query positions: (B, Sq) for a (B,) offset vector, (Sq,)
+    for a scalar offset (an int or a 0-d tensor)."""
+    ar = torch.arange(sq, device=device)
+    if torch.is_tensor(q_offset) and q_offset.dim() == 1:
+        return q_offset[:, None] + ar[None]
+    return ar + q_offset
+
+
+def _qk_mask(qpos, kpos, causal: bool, window):
+    """Causal and local-window visibility, shape qpos.shape + kpos.shape."""
+    mask = torch.ones(qpos.shape + kpos.shape, dtype=torch.bool,
+                      device=kpos.device)
+    if causal:
+        mask &= kpos <= qpos[..., None]
+    if window is not None:
+        mask &= kpos > qpos[..., None] - window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None, q_offset=0,
+                  kv_len=None):
+    """Reference attention.  q (B, Sq, H, Dh), k/v (B, Skv, Hkv, Dh).
+
+    `q_offset`: absolute position of q[:, 0], a scalar or a (B,) vector.
+    `window`: local attention span.  `kv_len`: valid KV length, scalar or
+    (B,).  GQA groups query heads in the product; K/V are never repeated.
+    """
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = (q * dh ** -0.5).reshape(b, sq, hkv, g, dh)
+    # f32 accumulation: products of bf16 values are exact in f32, so this
+    # is the reference's preferred_element_type=f32 product
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    kpos = torch.arange(skv, device=q.device)
+    mask = _qk_mask(_qpos(q_offset, sq, q.device), kpos, causal, window)
+    mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=q.device)
+        if kv_len.dim() == 1:
+            mask = mask & (kpos < kv_len[:, None, None, None, None])
+        else:
+            mask = mask & (kpos < kv_len)
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, dh)
+
+
+def attention(q, k, v, *, page_table=None, causal: bool = True, window=None,
+              q_offset=0, kv_len=None):
+    """Dispatch by shape.  With `page_table`, k/v are (P+1, ps, Hkv, dh)
+    pools and the call is a paged decode step."""
+    if page_table is not None:
+        if q.shape[1] != 1 or window is not None or kv_len is None:
+            raise ValueError("paged attention is one-row decode with "
+                             "kv_len and no window")
+        return paged_decode_attention(q, k, v, page_table, kv_len)
+    if q.shape[1] == 1 and window is None and kv_len is not None:
+        return decode_attention(q, k, v, kv_len)
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, kv_len=kv_len)
+
+
+def swiglu(x, wi_gate, wi_up, wo):
+    """LLaMA-style gated MLP: (B,S,D) x (D,F)x2 x (F,D)."""
+    return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo

@@ -1,0 +1,352 @@
+"""Decoder-only transformer LM in PyTorch: the dense GQA branch of the
+reference `repro.models.transformer`.
+
+Parameters are a plain dict with per-layer weights stacked on a leading L
+axis, as in the reference, so `params_from_jax` maps one onto the other
+leaf by leaf; a Python loop over layers takes the place of `lax.scan`.
+
+Serving writes the KV cache (and the paged pool) in place: `decode_step`
+and `paged_decode_step` return the same k/v tensors they were given,
+updated, and a new `pos`.  The reference returns fresh arrays; the values
+are the same.
+
+MoE, multi-codebook, sinusoidal positions, parallel blocks, M-RoPE and the
+GeGLU/GELU MLPs are not ported yet: such configs raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .layers import (_qpos, apply_rope, attention, layer_norm, rms_norm,
+                     rope_cos_sin, swiglu)
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str = "transformer"
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    head_dim: Optional[int] = None
+    rope_base: float = 10000.0
+    qkv_bias: bool = False
+    parallel_block: bool = False          # Command-R style
+    norm: str = "rmsnorm"                 # or "layernorm"
+    mlp_act: str = "swiglu"               # "geglu" | "gelu"
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # modality / position
+    mrope_sections: Optional[tuple] = None   # qwen2-vl
+    n_codebooks: int = 1                     # musicgen
+    pos_embed: str = "rope"                  # "sinusoidal" for musicgen
+    window: Optional[int] = None             # local attention
+    # scaling / tying
+    tie_embeddings: bool = True
+    embed_scale: float = 1.0                 # minicpm: 12.0
+    residual_scale: float = 1.0              # minicpm: 1.4/sqrt(L)
+    logit_scale: float = 1.0                 # command-r: 0.0625
+    # implementation
+    attn_impl: str = "ref"                   # "chunked" | "pallas"
+    loss_chunk: int = 0                      # seq-chunked xent (0 = off)
+    fsdp_hints: bool = False                 # keep param slices sharded in-loop
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+    max_decode_len: int = 0                  # serving cache length
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def param_count(self) -> int:
+        return sum(int(np.prod(shape)) for shape, _ in
+                   _param_specs(self).values())
+
+
+def _check_supported(cfg: TransformerConfig):
+    waiting = {"num_experts > 0 (MoE)": cfg.is_moe,
+               "n_codebooks > 1": cfg.n_codebooks > 1,
+               "pos_embed != 'rope'": cfg.pos_embed != "rope",
+               "parallel_block": cfg.parallel_block,
+               "mrope_sections (M-RoPE)": cfg.mrope_sections is not None,
+               "mlp_act != 'swiglu'": cfg.mlp_act != "swiglu"}
+    hit = [k for k, v in waiting.items() if v]
+    if hit:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(hit)} not ported to repro_torch yet")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+def _param_specs(cfg: TransformerConfig) -> dict:
+    """Flat name -> (shape, init) in a fixed order; init is the std of a
+    normal draw, or "ones" / "zeros".  Layer weights start with "layers/"
+    and carry a leading L axis."""
+    hd, h, hkv, d, L, f = (cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model,
+                           cfg.n_layers, cfg.d_ff)
+    s = d ** -0.5
+    spec = {"layers/attn_norm": ((L, d), "ones"),
+            "layers/wq": ((L, d, h * hd), s),
+            "layers/wk": ((L, d, hkv * hd), s),
+            "layers/wv": ((L, d, hkv * hd), s),
+            "layers/wo": ((L, h * hd, d), (h * hd) ** -0.5)}
+    if cfg.norm == "layernorm":
+        spec["layers/attn_norm_bias"] = ((L, d), "zeros")
+    if cfg.qkv_bias:
+        spec["layers/bq"] = ((L, h * hd), "zeros")
+        spec["layers/bk"] = ((L, hkv * hd), "zeros")
+        spec["layers/bv"] = ((L, hkv * hd), "zeros")
+    spec["layers/mlp_norm"] = ((L, d), "ones")
+    if cfg.norm == "layernorm":
+        spec["layers/mlp_norm_bias"] = ((L, d), "zeros")
+    spec["layers/wi_gate"] = ((L, d, f), s)
+    spec["layers/wi_up"] = ((L, d, f), s)
+    spec["layers/wo_mlp"] = ((L, f, d), f ** -0.5)
+    spec["embed"] = ((cfg.vocab_size, d), 1.0)
+    spec["final_norm"] = ((d,), "ones")
+    if cfg.norm == "layernorm":
+        spec["final_norm_bias"] = ((d,), "zeros")
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((d, cfg.vocab_size), s)
+    return spec
+
+
+def init_params(gen: torch.Generator, cfg: TransformerConfig,
+                device="cuda") -> dict:
+    """Random params with the reference's shapes and scales, drawn from
+    the CPU generator `gen` in a fixed order (so a seed gives the same
+    weights on any device) and moved to `device` in param_dtype."""
+    _check_supported(cfg)
+    params = {"layers": {}}
+    for name, (shape, init) in _param_specs(cfg).items():
+        if init == "ones":
+            t = torch.ones(shape, dtype=cfg.pdtype)
+        elif init == "zeros":
+            t = torch.zeros(shape, dtype=cfg.pdtype)
+        else:
+            t = torch.randn(shape, generator=gen, dtype=cfg.pdtype) * init
+        group, _, leaf = name.rpartition("/")
+        (params["layers"] if group else params)[leaf] = t.to(device)
+    return params
+
+
+def params_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
+    """The reference's param pytree, exported leaf by leaf with
+    `np.asarray`, as port params on `device` (same names, shapes, dtypes)."""
+    _check_supported(cfg)
+    want = _param_specs(cfg)
+    flat = {("layers/" + k): v for k, v in tree["layers"].items()}
+    flat.update({k: v for k, v in tree.items() if k != "layers"})
+    if set(flat) != set(want):
+        raise ValueError(f"param names differ from the config's: "
+                         f"{sorted(set(flat) ^ set(want))}")
+    params = {"layers": {}}
+    for name, arr in flat.items():
+        if tuple(arr.shape) != want[name][0]:
+            raise ValueError(f"{name}: shape {arr.shape} != {want[name][0]}")
+        group, _, leaf = name.rpartition("/")
+        (params["layers"] if group else params)[leaf] = \
+            torch.from_numpy(np.array(arr)).to(device)
+    return params
+
+
+def cast_params(params: dict, cfg: TransformerConfig) -> dict:
+    """One compute-dtype copy of every weight the blocks, the final norm
+    and the unembed read, plus "head" (the cast unembedding matrix).  The
+    reference casts the param_dtype weights inside every block call; the
+    values are identical, the port pays the cast once.  The embedding
+    table stays in param_dtype: the reference gathers and scales rows
+    before the cast.  Already-cast params pass through unchanged."""
+    _check_supported(cfg)
+    if "head" in params:
+        return params
+    cd = cfg.cdtype
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: v.to(cd) for k, v in params["layers"].items()}
+    out["final_norm"] = params["final_norm"].to(cd)
+    out["head"] = (params["embed"].T if cfg.tie_embeddings
+                   else params["lm_head"]).to(cd)
+    return out
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+def _norm(cfg, x, w, b=None):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, w, b)
+    return rms_norm(x, w)
+
+
+def _layer(params, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
+           cache=None, kv_len=None):
+    """One transformer block.  cache: (k, v) of (B, M, Hkv, hd), or the
+    paged (k_pool, v_pool, page_table); written in place."""
+    b, s, _ = x.shape
+    hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    hnb = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_bias"))
+    q, k, v = hnb @ lp["wq"], hnb @ lp["wk"], hnb @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
+    k = apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
+    v = v.reshape(b, s, hkv, hd)
+    rows = torch.arange(b, device=x.device)
+
+    page_table = None
+    if cache is not None and len(cache) == 3:
+        # paged decode (s == 1): each row writes its token at
+        # (table[pos // ps], pos % ps); rows with no page mapped there
+        # (inactive slots) write to the trash page
+        kp, vp, page_table = cache
+        ps = kp.shape[1]
+        pids = page_table[rows, q_offset // ps]
+        kp[pids, q_offset % ps] = k[:, 0].to(kp.dtype)
+        vp[pids, q_offset % ps] = v[:, 0].to(vp.dtype)
+        k, v = kp, vp
+    elif cache is not None:
+        ck, cv = cache
+        cols = _qpos(q_offset, s, x.device)
+        cols = cols if cols.dim() == 2 else cols[None].expand(b, s)
+        ck[rows[:, None], cols] = k.to(ck.dtype)
+        cv[rows[:, None], cols] = v.to(cv.dtype)
+        k, v = ck, cv
+
+    if torch.is_tensor(q_offset) and q_offset.dim() == 1:
+        # ragged per-slot positions: at s == 1 the kv_len mask is the
+        # causal constraint; s > 1 is bucketed prefill, causal per row
+        attn = attention(q, k, v, causal=s > 1, window=cfg.window,
+                         kv_len=kv_len, q_offset=q_offset,
+                         page_table=page_table)
+    else:
+        attn = attention(q, k, v, causal=True, window=cfg.window,
+                         q_offset=q_offset, kv_len=kv_len)
+    x = x + cfg.residual_scale * (attn.reshape(b, s, h * hd) @ lp["wo"])
+    h2 = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_bias"))
+    mlp = swiglu(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
+    return x + cfg.residual_scale * mlp
+
+
+def _embed(cfg, params, tokens):
+    return (params["embed"][tokens] * cfg.embed_scale).to(cfg.cdtype)
+
+
+def _unembed(cfg, params, x):
+    return (x @ params["head"]) * cfg.logit_scale
+
+
+def _cos_sin(cfg, positions):
+    return rope_cos_sin(positions, cfg.hd, cfg.rope_base, cfg.cdtype)
+
+
+def forward(params, tokens, cfg: TransformerConfig, positions=None):
+    """tokens (B, S) int -> logits (B, S, V)."""
+    params = cast_params(params, cfg)
+    x = _embed(cfg, params, tokens)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    cos, sin = _cos_sin(cfg, positions)
+    for i in range(cfg.n_layers):
+        x = _block(cfg, x, _layer(params, i), cos, sin)
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+    return _unembed(cfg, params, x)
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# --------------------------------------------------------------------------
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
+               pad_to: int = 128, device="cuda") -> dict:
+    """KV cache in model layout (L, B, M, Hkv, dh), M rounded up to a
+    multiple of `pad_to`; positions >= kv_len are masked downstream."""
+    dtype = dtype or cfg.cdtype
+    m = -(-max_len // pad_to) * pad_to
+    shape = (cfg.n_layers, batch, m, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decode_step(params, cache, tokens, cfg: TransformerConfig,
+                positions=None, last_idx=None):
+    """One decode step: tokens (B, S_new) (1 for decode, > 1 for prefill).
+    cache["pos"] is a scalar or a (B,) per-row vector.  Returns
+    (logits (B, V), cache) with k/v written in place and pos advanced.
+
+    `last_idx`: optional (B,) index of the position whose logits to return
+    (ragged bucketed prefill reads row b at prompt_len - 1)."""
+    params = cast_params(params, cfg)
+    x = _embed(cfg, params, tokens)
+    b, s = x.shape[0], x.shape[1]
+    pos0 = cache["pos"]
+    if positions is None:
+        positions = _qpos(pos0, s, x.device)
+    cos, sin = _cos_sin(cfg, positions)
+    kv_len = pos0 + s
+    for i in range(cfg.n_layers):
+        x = _block(cfg, x, _layer(params, i), cos, sin, q_offset=pos0,
+                   cache=(cache["k"][i], cache["v"][i]), kv_len=kv_len)
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+    new = {"k": cache["k"], "v": cache["v"], "pos": pos0 + s}
+    if last_idx is not None:
+        # gather each row's last real position before the unembed
+        x = x.gather(1, last_idx.long()[:, None, None].expand(b, 1,
+                                                              x.shape[2]))
+    return _unembed(cfg, params, x[:, -1:])[:, -1], new
+
+
+def init_paged_pool(cfg: TransformerConfig, pool_pages: int, page_size: int,
+                    dtype=None, device="cuda"):
+    """Paged KV pool (L, P+1, page_size, Hkv, dh); page P is the trash
+    page, pages 0..P-1 are allocatable."""
+    dtype = dtype or cfg.cdtype
+    shape = (cfg.n_layers, pool_pages + 1, page_size, cfg.n_kv_heads,
+             cfg.hd)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def paged_decode_step(params, cache, tokens, cfg: TransformerConfig):
+    """One paged decode step: tokens (B, 1).  cache holds the "kp"/"vp"
+    pools (L, P+1, ps, Hkv, dh), "ptab" (B, max_pages) int32 and "pos"
+    (B,).  Returns (logits (B, V), cache) with the pools written in place;
+    positions and rope follow decode_step exactly, so paged == dense."""
+    params = cast_params(params, cfg)
+    x = _embed(cfg, params, tokens)
+    if x.shape[1] != 1:
+        raise ValueError("paged_decode_step decodes one token per row")
+    pos0 = cache["pos"]
+    cos, sin = _cos_sin(cfg, _qpos(pos0, 1, x.device))
+    kv_len = pos0 + 1
+    ptab = cache["ptab"]
+    for i in range(cfg.n_layers):
+        x = _block(cfg, x, _layer(params, i), cos, sin, q_offset=pos0,
+                   cache=(cache["kp"][i], cache["vp"][i], ptab),
+                   kv_len=kv_len)
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+    return _unembed(cfg, params, x)[:, -1], {**cache, "pos": pos0 + 1}

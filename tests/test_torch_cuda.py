@@ -1,0 +1,89 @@
+"""Card-only tests of the PyTorch port: the CUDA decode-attention kernels
+against their plain versions at the demo LM's full widths, and the engine
+on the card.  Each skips, with its reason, where there is no CUDA device;
+the file imports no JAX, so it also runs on a machine without it:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_reference, paged_decode_attention)
+from repro_torch.models import registry  # noqa: E402
+from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402,E501
+
+# the plain version computes in f32 and rounds once; the kernel's online
+# softmax sums in another order: f32 2e-5, bf16 one output ulp (2e-2)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [8, 64])
+def test_kernels_match_plain_at_full_width(cuda_device, dtype, b):
+    """suncatcher-lm-100m widths: H 12, Hkv 4, dh 64, M 1024, ragged
+    kv_len; B2 == B1 bitwise with a NaN trash page."""
+    h, hkv, m, dh, ps = 12, 4, 1024, 64, 16
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(b)
+    q = torch.randn(b, h, dh, generator=g).to(cuda_device, dt)
+    kc = torch.randn(b, m, hkv, dh, generator=g).to(cuda_device, dt)
+    vc = torch.randn(b, m, hkv, dh, generator=g).to(cuda_device, dt)
+    lens = torch.randint(0, m + 1, (b,), generator=g, dtype=torch.int32)
+    lens[0], lens[1] = 0, 33
+    lens = lens.to(cuda_device)
+    out = decode_attention(q, kc, vc, lens)
+    ref = decode_attention_reference(q, kc, vc, lens)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert bool((out[0] == 0).all())
+    mp = m // ps
+    kp = torch.cat([kc.reshape(b * mp, ps, hkv, dh),
+                    torch.full((1, ps, hkv, dh), float("nan"), dtype=dt,
+                               device=cuda_device)])
+    vp = torch.cat([vc.reshape(b * mp, ps, hkv, dh), kp[-1:]])
+    ptab = torch.arange(b * mp, dtype=torch.int32,
+                        device=cuda_device).reshape(b, mp)
+    live = (lens[:, None] + ps - 1) // ps
+    ptab = torch.where(torch.arange(mp, device=cuda_device) < live, ptab,
+                       b * mp).to(torch.int32)
+    assert torch.equal(paged_decode_attention(q, kp, vp, ptab, lens), out)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_paged_equals_dense_through_the_kernels(cuda_device):
+    # reduced widths with head_dim 64: the kernels take 64 and 128
+    cfg = registry.get_reduced_config("suncatcher-lm-100m", head_dim=64)
+    fns = registry.model_fns(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg, cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, 6)]
+    streams = []
+    for page_size in (0, 16):
+        eng = ServingEngine(cfg, fns, params,
+                            EngineConfig(max_batch=3, max_len=64, seed=7,
+                                         page_size=page_size))
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=9,
+                               temperature=3.0 if uid % 2 else 0.0))
+        before = (decode_attention.launches, paged_decode_attention.launches)
+        done = eng.run()
+        launched = (decode_attention.launches - before[0],
+                    paged_decode_attention.launches - before[1])
+        sub = cfg.n_layers * eng.stats["decode_blocks"] * 8
+        assert launched == ((sub, 0) if not page_size else (0, sub))
+        streams.append({r.uid: r.generated for r in done})
+    assert streams[0] == streams[1]
+    assert all(len(v) == 9 for v in streams[0].values())
