@@ -4,7 +4,8 @@
   python3 chip_smoke.py
 
 1. Device: the card's name and power limit; build the CUDA kernels from
-   src/repro_torch/kernels/decode_attention/csrc with nvcc (sm_90a).
+   src/repro_torch/kernels/{decode_attention,flash_attention}/csrc with
+   nvcc (sm_90a), one nvcc per source, started together.
 2. Kernels at the demo LM's widths (H 12, Hkv 4, dh 64): the dense (B1)
    and paged (B2) decode-attention kernels against their plain PyTorch
    versions, at the serve run's shapes (B 16, M 512, kv_len <= 232, a
@@ -23,18 +24,45 @@
    "error").
    One more dense run under torch.profiler: device busy share, top
    kernels by device time.
+   2b. The flash-attention forward kernel (B3) against its plain version:
+   the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16, causal and
+   not), S 1000, MHA, MQA, dh 128, and f32 at 2e-5; gradients of q, k, v
+   through the autograd path against autograd through the plain version.
+   Times at the training shape beside the FLOP bound, the plain version
+   and SDPA.
 4. Reference: a small config (reduced widths, head_dim 64) in f32 on the
    card against the same model on the CPU, logits within 1e-3.
+5. Train: suncatcher-lm-100m at full width, bf16 compute, f32 masters,
+   seq 1024, batch 8, random weights from a seed, the port's SyntheticLM
+   (seed 0), under torch.use_deterministic_algorithms(True):
+   FaultTolerantTrainer.run_fused for 16 steps (drain_every 8, replicated
+   async checkpoints into a temporary directory), then run for 16 steps
+   from the same state.  Every loss finite and falling from step 0 to 15;
+   run == run_fused losses and final state bitwise; 2 drains; no host sync
+   inside a fused block (sync debug mode "error"); B3 launched 2 x 12 x 16
+   times per run (forward and remat recompute); the newest checkpoint
+   restores onto the card bitwise.  One fused block under torch.profiler.
+   A reduced f32 config (head_dim 64): one train step on the card against
+   the CPU.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
-name and power limit, and before that one JSON line per kernel.
+name and power limit, and before that one JSON line listing the kernels
+(B1, B2, B3) with their launches on the main paths, errors, times and
+bounds.
 """
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+# cuBLAS is deterministic only with a fixed workspace, set before the
+# first CUDA call; the train phase compares two runs bitwise
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
@@ -209,6 +237,95 @@ def kernel_phase(torch, timer):
     return rows
 
 
+def flash_bound(b, h, hkv, sq, skv, dh, causal, itemsize):
+    """Least time for B3's work on these inputs: 4 * dh FLOP per visible
+    (query, key) pair (QK^T and PV) at the bf16 tensor-core peak, or q, k,
+    v read once and o written once at the HBM rate, the larger."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    ops = 4 * dh * pairs * b * h
+    nbytes = (2 * b * h * sq * dh + 2 * b * hkv * skv * dh) * itemsize
+    t_ops = ops / PEAK_OPS["bfloat16" if itemsize == 2 else "float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_phase(torch, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    dev = torch.device("cuda")
+
+    def inputs(b, h, hkv, s, dh, dt, seed):
+        g = torch.Generator().manual_seed(seed)
+        return [torch.randn(b, s, n, dh, generator=g).to(dev, dt)
+                for n in (h, hkv, hkv)]
+
+    def plain(q, k, v, causal):
+        return attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal
+                                   ).transpose(1, 2)
+
+    train_err = None
+    for b, h, hkv, s, dh in ((8, 12, 4, 1024, 64), (2, 12, 4, 1000, 64),
+                             (2, 12, 12, 256, 64), (2, 12, 1, 256, 64),
+                             (2, 8, 2, 200, 128)):
+        for dtype in ("bfloat16", "float32"):
+            for causal in (True, False):
+                q, k, v = inputs(b, h, hkv, s, dh, getattr(torch, dtype),
+                                 s + dh)
+                out = flash_attention(q, k, v, causal=causal)
+                ref = plain(q, k, v, causal)
+                torch.cuda.synchronize()
+                tol = TOL[dtype]
+                err = (out.float() - ref.float()).abs().max().item()
+                check(bool(torch.isfinite(out).all()),
+                      f"B3 non-finite {b}x{h}x{hkv}x{s}x{dh}")
+                check(torch.allclose(out.float(), ref.float(), atol=tol,
+                                     rtol=tol),
+                      f"B3 {dtype} causal={causal} B={b} H={h} Hkv={hkv} "
+                      f"S={s} dh={dh}: max abs err {err} beyond atol=rtol="
+                      f"{tol}")
+                if (b, s, dtype, causal) == (8, 1024, "bfloat16", True):
+                    train_err = err
+                print(f"  B3 B={b} H={h} Hkv={hkv} S={s} dh={dh} "
+                      f"{dtype:8s} causal={causal!s:5s}: max abs err "
+                      f"{err:.3e} (atol=rtol={tol})", flush=True)
+
+    # gradients: autograd through the kernel's Function against autograd
+    # through the plain version (the backward is the plain formula's VJP)
+    q, k, v = (t.requires_grad_() for t in inputs(2, 12, 4, 256, 64,
+                                                  torch.float32, 1))
+    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(dev)
+    got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), go)
+    want = torch.autograd.grad(plain(q, k, v, True), (q, k, v), go)
+    gerr = max((a - w).abs().max().item() for a, w in zip(got, want))
+    check(gerr <= 1e-5, f"B3 gradients differ from the plain VJP by {gerr}")
+    print(f"  B3 gradients (q, k, v; f32, S 256) vs autograd through the "
+          f"plain version: max abs err {gerr:.3e} (tol 1e-5)", flush=True)
+
+    # times at the training shape
+    b, h, hkv, s, dh = 8, 12, 4, 1024, 64
+    q, k, v = inputs(b, h, hkv, s, dh, torch.bfloat16, s + dh)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    ms = timer.ms(lambda: flash_attention(q, k, v))
+    plain_ms = timer.ms(lambda: plain(q, k, v, True), iters=20)
+    sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    bms, by = flash_bound(b, h, hkv, s, s, dh, True, 2)
+    print(f"  flash_attention @ B=8 H=12 Hkv=4 S=1024 dh=64 bf16 causal: "
+          f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}) | plain "
+          f"{plain_ms * 1e3:.2f} us | SDPA {sdpa_ms * 1e3:.2f} us",
+          flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+            "max_abs_err": train_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms}
+
+
 def serve_phase(torch):
     import numpy as np
 
@@ -300,7 +417,7 @@ def serve_phase(torch):
                  zip(results[(0, 0.0)][uid], results[(0, 0.7)][uid]))
     print(f"  T=0.7 vs greedy: {differ} of {n_req * max_new} tokens differ "
           f"(random weights give near one-hot logits)", flush=True)
-    profile_run(torch, run)
+    profile_window(torch, "dense, greedy", lambda: run(0, 0.0)[2])
 
     # full-width logits: finite, of the expected shape
     cache = fns.init_cache(cfg, 2, 64, device=dev)
@@ -311,20 +428,21 @@ def serve_phase(torch):
     return totals
 
 
-def profile_run(torch, run):
-    """One dense greedy serve run under torch.profiler: device busy share
-    of the wall time and the kernels that take the most device time."""
+def profile_window(torch, label, fn):
+    """fn() (which returns its own wall time) under torch.profiler: device
+    busy share of the wall time and the kernels that take the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = run(0, 0.0)
+        wall = fn()
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy == 0:
         print("  profiler: no device time recorded", flush=True)
         return
-    print(f"  profile (dense, greedy): wall {wall:.3f} s, device busy "
+    print(f"  profile ({label}): wall {wall:.3f} s, device busy "
           f"{busy:.3f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}",
           flush=True)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -332,6 +450,154 @@ def profile_run(torch, run):
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.self_device_time_total / 1e6 / busy:6.1%} x{e.count:<6d} "
               f"{e.key[:90]}", flush=True)
+
+
+def train_phase(torch):
+    """Full-width training through FaultTolerantTrainer, fused and
+    per-step, compared bitwise; returns B3's launches over both runs."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    from repro_torch.train import (AdamWConfig, DataConfig,
+                                   FaultTolerantTrainer, FTConfig,
+                                   SyntheticLM, TrainConfig, init_train_state,
+                                   make_fused_steps, make_train_step,
+                                   restore_latest, screen_init)
+    from repro_torch.train.tree import tree_paths
+    dev = torch.device("cuda")
+    cfg = registry.get_config("suncatcher-lm-100m")
+    fns = registry.model_fns(cfg)
+    steps, k, seq, batch = 16, 8, 1024, 8
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=2,
+                       total_steps=steps)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0), dev)
+    state0 = init_train_state(torch.Generator().manual_seed(0), cfg, fns,
+                              dev)
+    step_fn = make_train_step(cfg, fns, tcfg)
+    fused = make_fused_steps(cfg, fns, tcfg)
+    step_fn(state0, data.batch_at(0))     # warm-up: cuBLAS, allocator
+    tokens = steps * seq * batch
+    want_launches = 2 * cfg.n_layers * steps
+
+    def equal_trees(a, b):
+        pa, pb = tree_paths(a), tree_paths(b)
+        return list(pa) == list(pb) and all(
+            pa[n].dtype == pb[n].dtype and torch.equal(pa[n], pb[n])
+            for n in pa)
+
+    runs = {}
+    for mode in ("run_fused", "run"):
+        # snapshots (1.2 GB of f32 params and moments, two replicas) at
+        # steps 0 and 16; the timed run includes writing them
+        with tempfile.TemporaryDirectory() as tmp:
+            dirs = (os.path.join(tmp, "a"), os.path.join(tmp, "b"))
+            ft = FTConfig(checkpoint_dirs=dirs, checkpoint_every=steps,
+                          keep=1, drain_every=k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr = FaultTolerantTrainer(step_fn, state0, data, ft,
+                                      fused_steps=fused)
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            hist = getattr(tr, mode)(steps)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = flash_attention.launches
+            losses = [h["loss"] for h in hist]
+            st = tr.stats
+            print(f"  train {mode}: {steps} steps x {seq * batch} tokens in "
+                  f"{dt:.3f} s = {tokens / dt:.1f} tok/s | "
+                  f"{st['host_syncs'] / steps:.4f} host syncs/step "
+                  f"({st['drains']} drains, {st['checkpoints']} checkpoint "
+                  f"snapshots) | B3 launches {launches} | peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+                  flush=True)
+            print(f"    loss {' '.join(f'{x:.4f}' for x in losses)}",
+                  flush=True)
+            check(len(losses) == steps and all(np.isfinite(losses)),
+                  f"{mode}: a loss is not finite: {losses}")
+            check(losses[-1] < losses[0],
+                  f"{mode}: loss did not fall ({losses[0]} -> {losses[-1]})")
+            check(st["rollbacks"] == 0, f"{mode}: {st['rollbacks']} "
+                  f"rollbacks on a clean run")
+            check(launches == want_launches, f"{mode}: B3 launched "
+                  f"{launches} times, want 2 x {cfg.n_layers} x {steps}")
+            got_step, restored = restore_latest(tr.state, dirs)
+            check(got_step == steps and equal_trees(restored, tr.state)
+                  and restored["params"]["embed"].is_cuda,
+                  f"{mode}: newest checkpoint (step {got_step}) does not "
+                  f"restore onto the card bitwise")
+            runs[mode] = (losses, tr.state, launches, st)
+    check(runs["run_fused"][3]["drains"] == steps // k,
+          f"run_fused drained {runs['run_fused'][3]['drains']} times, "
+          f"want {steps // k}")
+    check(runs["run_fused"][0] == runs["run"][0],
+          "run_fused and run losses differ")
+    check(equal_trees(runs["run_fused"][1], runs["run"][1]),
+          "run_fused and run final states differ")
+    print("  run_fused == run: losses and final state bitwise; no host "
+          "sync inside a fused block (sync debug mode \"error\"); "
+          "newest checkpoints restore bitwise", flush=True)
+
+    def one_block():
+        batches = data.batch_block(np.arange(k))
+        thr = torch.tensor([3.0, 10.0], device=dev)
+        screen = screen_init(32, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused(state0, screen, batches, thr)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    wall = one_block()
+    print(f"  one fused block of {k} steps, no checkpoints: {wall:.3f} s = "
+          f"{k * seq * batch / wall:.1f} tok/s", flush=True)
+    profile_window(torch, f"one fused block of {k} train steps", one_block)
+    return runs["run_fused"][2] + runs["run"][2]
+
+
+def train_reference(torch):
+    """Reduced widths with head_dim 64, f32: one train step on the card
+    against the same step on the CPU."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.train import (DataConfig, SyntheticLM, TrainConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.tree import tree_paths
+    cfg = registry.get_reduced_config("suncatcher-lm-100m",
+                                      compute_dtype="float32", head_dim=64)
+    fns = registry.model_fns(cfg)
+    step = make_train_step(cfg, fns, TrainConfig(warmup_steps=0))
+    out = {}
+    for d in ("cpu", "cuda"):
+        state = init_train_state(torch.Generator().manual_seed(1), cfg, fns,
+                                 d)
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=128, global_batch=4), d
+                            ).batch_at(0)
+        out[d] = step(state, batch)
+    (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
+    rel = max(abs(mg[n].item() - mc[n].item()) / abs(mc[n].item())
+              for n in ("loss", "grad_norm"))
+    # AdamW's first step moves each element by ~lr * sign(g): an element
+    # whose gradient is at rounding level may step differently, so params
+    # get lr / 10 of slack, and at most 1 in 1000 may differ by > 1e-6
+    lr = TrainConfig().adamw.lr
+    diffs = [(tree_paths(sg)[n].cpu() - p).abs()
+             for n, p in tree_paths(sc).items()]
+    perr = max(d.max().item() for d in diffs)
+    share = sum((d > 1e-6).sum().item() for d in diffs) / sum(
+        d.numel() for d in diffs)
+    check(rel <= 1e-4 and perr <= lr / 10 and share <= 1e-3
+          and np.isfinite(perr),
+          f"card vs CPU train step: loss/grad-norm rel {rel}, params max "
+          f"{perr}, share > 1e-6 {share}")
+    print(f"  reduced config f32, one train step: card vs CPU loss and grad "
+          f"norm rel err {rel:.3e} (tol 1e-4), params max abs err "
+          f"{perr:.3e} (tol lr/10 = {lr / 10:.0e}), share of params off by "
+          f"> 1e-6 {share:.2e} (tol 1e-3)", flush=True)
 
 
 def reference_phase(torch):
@@ -377,7 +643,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.decode_attention import kernel as b12
+    from repro_torch.kernels.flash_attention import kernel as b3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -389,22 +656,45 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
 
     print("phase 1: build", flush=True)
-    kernel.build()
-    print(f"  nvcc build {kernel._Build.seconds:.1f} s", flush=True)
-    for ln in kernel._Build.log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print("  " + ln.strip(), flush=True)
+    libs = (b12.LIBRARY, b3.LIBRARY)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.load) for lib in libs]:
+            f.result()
+    for lib in libs:
+        print(f"  {lib.source.name}: nvcc build {lib.seconds:.1f} s",
+              flush=True)
+        for ln in lib.log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print("  " + ln.strip(), flush=True)
 
     print("phase 2: kernels vs plain versions", flush=True)
-    rows = kernel_phase(torch, Timer(torch))
+    timer = Timer(torch)
+    rows = kernel_phase(torch, timer)
+    print("phase 2b: flash-attention kernel vs plain version", flush=True)
+    rows.append(flash_phase(torch, timer))
 
     print("phase 3: serve suncatcher-lm-100m (full width, bf16)", flush=True)
     totals = serve_phase(torch)
     rows[0]["launches"], rows[1]["launches"] = totals
-    check(all(r["launches"] > 0 for r in rows), "a kernel never launched")
+    check(all(r["launches"] > 0 for r in rows[:2]),
+          "a decode kernel never launched")
 
     print("phase 4: reference check", flush=True)
     reference_phase(torch)
+
+    print("phase 5: train suncatcher-lm-100m (full width, bf16, seq 1024, "
+          "batch 8)", flush=True)
+    # deterministic kernels, without the NaN fill of every fresh
+    # allocation (no kernel of the path reads memory it did not write)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        rows[2]["launches"] = train_phase(torch)
+        train_reference(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    check(rows[2]["launches"] > 0, "the flash kernel never launched")
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -1,72 +1,25 @@
-"""Build, load and launch the decode-attention CUDA kernels (B1 dense, B2
-paged) from `csrc/decode_attention.cu`.
+"""Load and launch the decode-attention CUDA kernels (B1 dense, B2 paged)
+from `csrc/decode_attention.cu`.
 
-The source has a plain C interface: `nvcc` compiles it for `sm_90a` into a
-shared library under `build/` beside this file at first use, and `ctypes`
-loads it.  Nothing here runs at import, so the CPU tests import this module
-freely.  A build that fails raises with the compiler's output; a launch
-that CUDA refuses raises with its error code.
+The source has a plain C interface; `kernels/_build.py` compiles it with
+`nvcc` for `sm_90a` at first use and loads it with `ctypes`.  Nothing here
+runs at import, so the CPU tests import this module freely.  A launch that
+CUDA refuses raises with its error code.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from .._build import Library, raise_on
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
-class _Build:
-    """The loaded library and what `nvcc` said while building it."""
-    lib = None
-    log = ""
-    seconds = 0.0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): cannot build the "
-                       "decode-attention kernels")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
-    if _Build.lib is not None:
-        return _Build.lib
-    t0 = time.perf_counter()
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"decode_attention_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        _Build.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE.name}:\n{_Build.log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                             ctypes.c_float, p]
@@ -75,9 +28,10 @@ def build() -> ctypes.CDLL:
                                                   i, i, i, i, ctypes.c_float,
                                                   p]
     lib.paged_decode_attention_launch.restype = i
-    _Build.lib = lib
-    _Build.seconds = time.perf_counter() - t0
-    return lib
+
+
+LIBRARY = Library(Path(__file__).resolve().parent / "csrc" /
+                  "decode_attention.cu", _declare)
 
 
 def _check(q, k, v, kv_len, extra=()):
@@ -107,11 +61,6 @@ def _check(q, k, v, kv_len, extra=()):
         raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def decode_attention_fwd(q, k_cache, v_cache, kv_len):
     """B1.  q (B, H, dh); k/v_cache (B, M, Hkv, dh); kv_len (B,) int32 on
     the card.  Returns (B, H, dh) in q's dtype."""
@@ -125,14 +74,14 @@ def decode_attention_fwd(q, k_cache, v_cache, kv_len):
         raise ValueError(f"bad heads ({h} vs {hkv}) or kv_len shape "
                          f"{tuple(kv_len.shape)}")
     _check(q, k_cache, v_cache, kv_len)
-    lib = build()
+    lib = LIBRARY.load()
     out = torch.empty_like(q)
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), b, hkv, h // hkv, m, dh,
         _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "decode_attention")
+    raise_on(err, "decode_attention")
     return out
 
 
@@ -154,12 +103,12 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):
     if page_table.dtype != torch.int32:
         raise TypeError(f"page_table must be int32, got {page_table.dtype}")
     _check(q, k_pages, v_pages, kv_len, extra=(("page_table", page_table),))
-    lib = build()
+    lib = LIBRARY.load()
     out = torch.empty_like(q)
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kv_len.data_ptr(), page_table.data_ptr(), out.data_ptr(), b, hkv,
         h // hkv, ps, page_table.shape[1], dh, _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "paged_decode_attention")
+    raise_on(err, "paged_decode_attention")
     return out

@@ -1,0 +1,79 @@
+"""Load and launch the flash-attention forward CUDA kernel (B3) from
+`csrc/flash_attention.cu`.
+
+The source has a plain C interface; `kernels/_build.py` compiles it with
+`nvcc` for `sm_90a` at first use and loads it with `ctypes`.  Nothing here
+runs at import, so the CPU tests import this module freely.  A launch that
+CUDA refuses raises with its error code.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .._build import Library, raise_on
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, i, ctypes.c_float, p]
+    lib.flash_attention_launch.restype = i
+
+
+LIBRARY = Library(Path(__file__).resolve().parent / "csrc" /
+                  "flash_attention.cu", _declare)
+
+
+def _check(q, k, v):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in "
+                         f"{_HEAD_DIMS}, got {q.shape[-1]}")
+    if not q.is_cuda:
+        raise ValueError(f"flash attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: head dim must be contiguous and rows "
+                             f"16-byte aligned (strides {t.stride()})")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool):
+    """B3.  q (B, H, Sq, dh); k, v (B, Hkv, Skv, dh), any strides with the
+    head dim contiguous (a head-major view of the (B, S, H, dh) model
+    layout goes in as it is).  Causal means key position <= query
+    position.  Returns a (B, Sq, H, dh)-contiguous tensor viewed as
+    (B, H, Sq, dh), in q's dtype."""
+    b, h, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, skv, dh) or v.shape != k.shape or h % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit")
+    if sq == 0 or skv == 0:
+        raise ValueError("flash attention needs Sq > 0 and Skv > 0")
+    _check(q, k, v)
+    lib = LIBRARY.load()
+    out = torch.empty(b, sq, h, dh, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
+                                      for s in t.stride()[:3]))
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        b, h, h // hkv, sq, skv, dh, _DTYPES[q.dtype], int(causal),
+        dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(err, "flash_attention")
+    return out

@@ -2,10 +2,12 @@
 
 `attention` dispatches by shape, never by a switch: a one-row query with a
 `kv_len` and no window goes to the decode-attention kernels (dense, or
-paged when a page table is given), whose wrappers run the CUDA kernel for
-CUDA tensors and the plain version for CPU tensors.  Everything else runs
-`attention_ref`.  The chunked and flash paths of the reference wait for
-the training slice.
+paged when a page table is given); a full-sequence call (q_offset the
+Python int 0, no window, no `kv_len`, Sq == Skv > 1) goes to the
+flash-attention kernel, under the reference's own condition for it.  Each
+wrapper runs its CUDA kernel for CUDA tensors and the plain version for
+CPU tensors.  Everything else (the engine's ragged prefill, windows) runs
+`attention_ref`.  The chunked path of the reference is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -111,6 +114,9 @@ def attention(q, k, v, *, page_table=None, causal: bool = True, window=None,
         return paged_decode_attention(q, k, v, page_table, kv_len)
     if q.shape[1] == 1 and window is None and kv_len is not None:
         return decode_attention(q, k, v, kv_len)
+    if window is None and kv_len is None and isinstance(q_offset, int) \
+            and q_offset == 0 and 1 < q.shape[1] == k.shape[1]:
+        return flash_attention(q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal, window=window,
                          q_offset=q_offset, kv_len=kv_len)
 

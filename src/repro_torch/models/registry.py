@@ -21,8 +21,8 @@ def _config_module(arch: str):
 
 
 def model_fns(cfg) -> SimpleNamespace:
-    """Config dataclass -> the model module's interface: init / forward,
-    the serving pair init_cache / decode_step, and decode_spec
+    """Config dataclass -> the model module's interface: init / forward /
+    loss_fn, the serving pair init_cache / decode_step, and decode_spec
     (models/decode_state.py), the per-slot state spec the engine uses."""
     if not isinstance(cfg, TransformerConfig):
         raise KeyError(f"no model family registered for config type "
@@ -30,7 +30,7 @@ def model_fns(cfg) -> SimpleNamespace:
     from . import transformer as mod
     from .decode_state import decode_spec
     return SimpleNamespace(init=mod.init_params, forward=mod.forward,
-                           init_cache=mod.init_cache,
+                           loss_fn=mod.loss_fn, init_cache=mod.init_cache,
                            decode_step=mod.decode_step,
                            decode_spec=decode_spec)
 
@@ -44,3 +44,9 @@ def get_reduced_config(arch: str, **overrides):
     """Tiny same-family config for CPU tests."""
     cfg = _config_module(arch).reduced()
     return replace(cfg, **overrides) if overrides else cfg
+
+
+def input_kind(arch: str) -> str:
+    """What a batch of this arch holds: "tokens" (the data pipeline's
+    `DataConfig.kind`)."""
+    return getattr(_config_module(arch), "INPUT_KIND", "tokens")

@@ -10,6 +10,13 @@ and `paged_decode_step` return the same k/v tensors they were given,
 updated, and a new `pos`.  The reference returns fresh arrays; the values
 are the same.
 
+Training differentiates `loss_fn` with autograd: `cast_params` is part of
+the graph, so gradients reach the param_dtype masters, and the tied
+`head = embed.T` accumulates into `embed`.  With `cfg.remat` each block
+runs under `torch.utils.checkpoint` (the reference's `jax.checkpoint` with
+nothing saveable): the backward pass recomputes the block, attention
+kernel included.
+
 MoE, multi-codebook, sinusoidal positions, parallel blocks, M-RoPE and the
 GeGLU/GELU MLPs are not ported yet: such configs raise NotImplementedError.
 """
@@ -20,9 +27,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (_qpos, apply_rope, attention, layer_norm, rms_norm,
                      rope_cos_sin, swiglu)
+from .losses import chunked_lm_loss, softmax_xent
 
 
 @dataclass(frozen=True)
@@ -172,6 +181,20 @@ def params_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
     return params
 
 
+def train_state_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
+    """The reference's train state {params, opt: {m, v, step}, step},
+    exported leaf by leaf with `np.asarray`, as a port train state on
+    `device` (see `train/loop.py::init_train_state`)."""
+    def scalar(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+    opt = tree["opt"]
+    return {"params": params_from_jax(tree["params"], cfg, device),
+            "opt": {"m": params_from_jax(opt["m"], cfg, device),
+                    "v": params_from_jax(opt["v"], cfg, device),
+                    "step": scalar(opt["step"])},
+            "step": scalar(tree["step"])}
+
+
 def cast_params(params: dict, cfg: TransformerConfig) -> dict:
     """One compute-dtype copy of every weight the blocks, the final norm
     and the unembed read, plus "head" (the cast unembedding matrix).  The
@@ -265,17 +288,42 @@ def _cos_sin(cfg, positions):
     return rope_cos_sin(positions, cfg.hd, cfg.rope_base, cfg.cdtype)
 
 
-def forward(params, tokens, cfg: TransformerConfig, positions=None):
-    """tokens (B, S) int -> logits (B, S, V)."""
-    params = cast_params(params, cfg)
+def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
+    """Embeddings -> blocks -> final norm, from cast params."""
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = _cos_sin(cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, _layer(params, i), cos, sin)
-    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
-    return _unembed(cfg, params, x)
+        if remat:
+            # no dropout anywhere, so no RNG state to stash and replay
+            x = checkpoint(_block, cfg, x, _layer(params, i), cos, sin,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(cfg, x, _layer(params, i), cos, sin)
+    return _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+
+
+def forward(params, tokens, cfg: TransformerConfig, positions=None):
+    """tokens (B, S) int -> logits (B, S, V)."""
+    params = cast_params(params, cfg)
+    return _unembed(cfg, params, _hidden(params, tokens, cfg, positions))
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    """Mean next-token cross-entropy.  batch: {tokens, labels[,
+    positions]}.  With cfg.loss_chunk > 0 dividing the sequence, the
+    (B, S, V) logits are never materialised: the xent runs chunk by
+    chunk."""
+    labels = batch["labels"]
+    params = cast_params(params, cfg)
+    x = _hidden(params, batch["tokens"], cfg, batch.get("positions"))
+    if cfg.loss_chunk and labels.shape[-1] % cfg.loss_chunk == 0:
+        return chunked_lm_loss(x, params["head"], labels,
+                               chunk=cfg.loss_chunk,
+                               logit_scale=cfg.logit_scale)
+    return softmax_xent(_unembed(cfg, params, x), labels).mean()
 
 
 # --------------------------------------------------------------------------

@@ -24,7 +24,6 @@ PyTorch.
 """
 from __future__ import annotations
 
-import contextlib
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Optional
@@ -34,6 +33,7 @@ import torch
 
 from repro_torch.models import decode_state as ds
 from repro_torch.models.transformer import cast_params
+from repro_torch.sync import no_host_sync
 
 from . import prng
 
@@ -426,7 +426,7 @@ class ServingEngine:
 
     def _decode_block(self):
         """One decode block on the device; drain it in a single transfer."""
-        with _no_host_sync(self.device):
+        with no_host_sync(self.device):
             self.cache, self.state, toks, emit, done = \
                 self._engine_step_impl(self.params, self.cache, self.state)
             block = torch.stack([toks, emit.to(torch.int32),
@@ -463,18 +463,3 @@ class ServingEngine:
             self.step()
             steps += 1
         return self.finished
-
-
-@contextlib.contextmanager
-def _no_host_sync(device):
-    """On a CUDA device, an op that waits for the device raises inside
-    this block (a CPU run has no device to wait for)."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)

@@ -1,7 +1,8 @@
 """Threefry-2x32 counter-based PRNG: the port's counterpart of the
-`jax.random` calls the serving engine makes (`PRNGKey`, `fold_in`,
-`split`, `categorical`), bit for bit as jax runs them with its default
-`threefry2x32` implementation and `jax_threefry_partitionable=True`.
+`jax.random` calls the serving engine and the synthetic data pipeline
+make (`PRNGKey`, `fold_in`, `split`, `categorical`, `uniform`, `randint`),
+bit for bit as jax runs them with its default `threefry2x32`
+implementation and `jax_threefry_partitionable=True`.
 
 Keys are (..., 2) int64 tensors holding uint32 values: torch cannot add
 uint32 tensors, so every word is computed in int64 and masked to 32 bits.
@@ -68,14 +69,32 @@ def random_bits(key, n: int):
     return o1 ^ o2
 
 
-def uniform(key, n: int):
-    """float32 `jax.random.uniform(key, (n,), minval=tiny, maxval=1)`, the
-    draw under `gumbel`: the top 23 bits become the mantissa of a float in
-    [1, 2), minus 1."""
+def uniform(key, n: int, minval: float = _TINY):
+    """float32 `jax.random.uniform(key, (n,), minval=minval, maxval=1)`
+    for minval tiny (the draw under `gumbel`, the default) or 0: the top
+    23 bits become the mantissa of a float in [1, 2), minus 1."""
+    if minval not in (0.0, _TINY):
+        raise ValueError(f"minval {minval}: only 0 and float32 tiny")
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    # (1 - tiny) rounds to 1.0 in float32, so floats * 1 + tiny
-    return torch.clamp_min(floats + _TINY, _TINY)
+    # (1 - minval) rounds to 1.0 in float32, so floats * 1 + minval
+    return torch.clamp_min(floats + minval, minval)
+
+
+def randint(key, n: int, minval: int, maxval: int):
+    """int32 `jax.random.randint(key, (n,), minval, maxval)`, batched over
+    key (..., 2) -> (..., n) int64: two 32-bit draws per value, reduced
+    modulo the span with jax's uint32 wrap-around."""
+    span = maxval - minval
+    if not 0 < span <= _MASK:
+        raise ValueError(f"randint span {span} outside (0, 2**32)")
+    k = split(key)
+    hi = random_bits(k[..., 0, :], n)
+    lo = random_bits(k[..., 1, :], n)
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span
+    off = ((hi % span) * mult) & _MASK
+    off = ((off + lo % span) & _MASK) % span
+    return off + minval
 
 
 def categorical(key, logits):

@@ -1,0 +1,103 @@
+"""Deterministic synthetic data pipeline.
+
+Streams are a pure function of (seed, step): after a rollback or restart,
+replaying step s regenerates bit-identical batches, so no data-loader
+state needs checkpointing (only the step counter).  Tokens mix
+Zipf-distributed unigrams with a deterministic repetition pattern (every
+fourth position repeats one random token per row), a learnable
+distribution, so training tests can assert actual learning.
+
+The draws go through the port's threefry (`serving/prng.py`), so the keys,
+the uniforms and the repetition pattern are the reference's bit for bit.
+The Zipf tokens are `searchsorted(cdf, cdf[-1] * (1 - u))` as in
+`jax.random.choice(p=...)`, but over a cdf summed in order in float32 on
+the host: the reference's XLA cumsum associates differently, so a
+uniform that lands between the two cdfs' values of one entry picks a
+neighbouring token, and the Zipf tokens are not bitwise the reference's.
+(torch.cumsum of floats on the card also has no deterministic version.)
+Batches are built on the device the pipeline was given.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.serving import prng
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int = 1024
+    seq_len: int = 128
+    global_batch: int = 8
+    seed: int = 0
+    kind: str = "tokens"          # "codebooks" | "vlm": not ported
+
+
+def _zipf_probs(vocab: int) -> np.ndarray:
+    p = 1.0 / np.arange(1, vocab + 1)
+    return p / p.sum()
+
+
+def pod_step_grid(round_idx: int, n_pods: int, inner_steps: int,
+                  pod_stride: int = 1_000_000) -> np.ndarray:
+    """(n_pods, H) step-id grid for DiLoCo round `round_idx`: each pod
+    draws from a disjoint stride-offset partition of the deterministic
+    stream."""
+    return ((round_idx * inner_steps + np.arange(inner_steps))[None]
+            + (np.arange(n_pods) * pod_stride)[:, None]).astype(np.int32)
+
+
+class SyntheticLM:
+    """Deterministic, replayable synthetic LM token stream on `device`."""
+
+    def __init__(self, cfg: DataConfig, device="cuda"):
+        if cfg.kind != "tokens":
+            raise NotImplementedError(
+                f"DataConfig.kind {cfg.kind!r}: only 'tokens' is ported "
+                f"(the codebook and VLM families are not)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        cdf = np.cumsum(_zipf_probs(cfg.vocab_size).astype(np.float32),
+                        dtype=np.float32)
+        self._cdf = torch.from_numpy(cdf).to(self.device)
+        self._key = prng.PRNGKey(cfg.seed, self.device)
+
+    def _draw(self, steps: torch.Tensor) -> dict:
+        """Batches for a tensor of step ids: leading axes steps.shape."""
+        b, s1 = self.cfg.global_batch, self.cfg.seq_len + 1
+        keys = prng.split(prng.fold_in(self._key, steps))    # (..., 2, 2)
+        kz, kr = keys[..., 0, :], keys[..., 1, :]
+        u = prng.uniform(kz, b * s1, minval=0.0)
+        toks = torch.searchsorted(self._cdf, self._cdf[-1] * (1 - u))
+        toks = toks.reshape(*steps.shape, b, s1)
+        # overlay the deterministic local repetition pattern (learnable)
+        rep = prng.randint(kr, b, 0, self.cfg.vocab_size)
+        rep = rep.reshape(*steps.shape, b, 1)
+        pattern = torch.arange(s1, device=self.device) % 4 == 3
+        toks = torch.where(pattern, rep, toks).to(torch.int32)
+        return {"tokens": toks[..., :-1].contiguous(),
+                "labels": toks[..., 1:].contiguous()}
+
+    def _steps(self, steps) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(steps, dtype=np.int64),
+                               device=self.device)
+
+    def batch_at(self, step: int) -> dict:
+        """Batch for a given step: a pure function of (seed, step)."""
+        return self._draw(self._steps(step))
+
+    def batches(self, start_step: int = 0):
+        step = start_step
+        while True:
+            yield step, self.batch_at(step)
+            step += 1
+
+    def batch_block(self, steps) -> dict:
+        """Batches for an array of step ids in one pass, leading axes
+        steps.shape (fused K-step blocks use (K,)): elementwise the same
+        arithmetic as `batch_at`, so bit-identical to stacking its
+        batches."""
+        return self._draw(self._steps(steps))

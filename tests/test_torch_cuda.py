@@ -1,6 +1,6 @@
-"""Card-only tests of the PyTorch port: the CUDA decode-attention kernels
-against their plain versions at the demo LM's full widths, and the engine
-on the card.  Each skips, with its reason, where there is no CUDA device;
+"""Card-only tests of the PyTorch port: the CUDA decode-attention (B1,
+B2) and flash-attention (B3) kernels against their plain versions at the
+demo LM's full widths, and the engine on the card.  Each skips, with its reason, where there is no CUDA device;
 the file imports no JAX, so it also runs on a machine without it:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,6 +13,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference, paged_decode_attention)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_reference, flash_attention)
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402,E501
 
@@ -87,3 +89,63 @@ def test_engine_on_card_paged_equals_dense_through_the_kernels(cuda_device):
         streams.append({r.uid: r.generated for r in done})
     assert streams[0] == streams[1]
     assert all(len(v) == 9 for v in streams[0].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,s,dh", [
+    (8, 12, 4, 1024, 64),       # the training shape
+    (2, 12, 4, 1000, 64),       # ragged: not a multiple of 64
+    (2, 12, 12, 256, 64),       # MHA
+    (2, 12, 1, 256, 64),        # MQA
+    (2, 8, 2, 200, 128),        # head_dim 128, ragged
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda_device, b, h, hkv, s, dh, dtype,
+                                    causal):
+    """B3 in the model layout (B, S, H, dh) against the plain version:
+    f32 2e-5; bf16 2e-2 (atol and rtol, as tests/test_kernels.py: the
+    kernel rounds P to bf16 for the P V product and the output once)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(s + dh)
+    q = torch.randn(b, s, h, dh, generator=g).to(cuda_device, dt)
+    k = torch.randn(b, s, hkv, dh, generator=g).to(cuda_device, dt)
+    v = torch.randn(b, s, hkv, dh, generator=g).to(cuda_device, dt)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    ref = attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal
+                              ).transpose(1, 2)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    assert out.dtype == dt and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_gradients_match_autograd_through_plain(cuda_device):
+    """The backward differentiates the plain formula, as the reference's
+    custom_vjp does: gradients equal autograd through the plain version
+    (the forward outputs differ, the backward recomputes from q, k, v)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (torch.randn(2, 256, n, 64, generator=g).to(cuda_device)
+               for n in (12, 4, 4))
+    go = torch.randn(2, 256, 12, 64, generator=g).to(cuda_device)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), go)
+    want = torch.autograd.grad(attention_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ).transpose(1, 2), (q, k, v), go)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
+    q = torch.randn(1, 64, 2, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q, q, q)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports jax or the JAX package, and the port's serve
-launcher runs on the CPU only when asked to."""
+`chip_smoke.py` imports jax or the JAX package, every module imports
+with both blocked, and the port's serve launcher runs on the CPU only
+when asked to (the train launcher's CLI: tests/test_torch_training.py)."""
 import ast
 import os
 import subprocess
@@ -36,6 +37,23 @@ def test_no_jax_or_reference_imports(path):
             if _forbidden(node.module or ""):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_port_module_imports_without_jax_or_the_reference():
+    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+                           .parts).removesuffix(".__init__")
+                  for p in FILES if p.name != "chip_smoke.py")
+    assert "repro_torch.train.fault_tolerance" in mods
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=240,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                                   OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
 
 
 def _serve(*args):
