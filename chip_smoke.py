@@ -4,8 +4,9 @@
   python3 chip_smoke.py
 
 1. Device: the card's name and power limit; build the CUDA kernels from
-   src/repro_torch/kernels/{decode_attention,flash_attention}/csrc with
-   nvcc (sm_90a), one nvcc per source, started together.
+   src/repro_torch/kernels/{decode_attention,flash_attention,rglru_scan}/
+   csrc with nvcc (sm_90a), one nvcc per source, started together, and
+   print each one's registers and spills.
 2. Kernels at the demo LM's widths (H 12, Hkv 4, dh 64): the dense (B1)
    and paged (B2) decode-attention kernels against their plain PyTorch
    versions, at the serve run's shapes (B 16, M 512, kv_len <= 232, a
@@ -14,6 +15,21 @@
    B2 == B1 bitwise for page sizes 16 and 64, and B2 bitwise unchanged by
    a NaN-filled trash page.  Times with CUDA events, L2 flushed before
    every call, beside the HBM bound, the plain version and SDPA.
+   2b. The flash-attention forward kernel (B3) against its plain version:
+   the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16, causal and
+   not), S 1000, MHA, MQA, dh 128, and f32 at 2e-5; gradients of q, k, v
+   through the autograd path against autograd through the plain version.
+   Times at the training shape beside the FLOP bound, the plain version
+   and SDPA.
+   2c. The RG-LRU scan kernel (B4) against its plain version: the serve
+   prefill shape (16, 256, 2560), a ragged (3, 100, 70) and the long
+   prefill's (2, 2048, 2560), f32, bitwise; (1, 512, 256) bf16 within
+   0.1 (tests/test_kernels.py::_tol x 5); a == 0 gives x and a == 1 the
+   cumsum of integer-valued x, bitwise; gradients through the autograd
+   path against autograd through the plain version.  B1 at
+   recurrentgemma-2b's decode widths (H 10, Hkv 1, dh 256, a 2048-slot
+   ring), f32 and bf16, kv_len ragged from 0 to 2048.  Times beside the
+   bounds and the plain versions, and B1's beside SDPA.
 3. Serve: suncatcher-lm-100m at full width in bf16, random weights from a
    seed, through ServingEngine: 32 requests on 16 slots, max_len 512,
    decode_block 8, prompts of 4-200 tokens with shared heads; dense and
@@ -24,12 +40,6 @@
    "error").
    One more dense run under torch.profiler: device busy share, top
    kernels by device time.
-   2b. The flash-attention forward kernel (B3) against its plain version:
-   the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16, causal and
-   not), S 1000, MHA, MQA, dh 128, and f32 at 2e-5; gradients of q, k, v
-   through the autograd path against autograd through the plain version.
-   Times at the training shape beside the FLOP bound, the plain version
-   and SDPA.
 4. Reference: a small config (reduced widths, head_dim 64) in f32 on the
    card against the same model on the CPU, logits within 1e-3.
 5. Train: suncatcher-lm-100m at full width, bf16 compute, f32 masters,
@@ -44,12 +54,26 @@
    restores onto the card bitwise.  One fused block under torch.profiler.
    A reduced f32 config (head_dim 64): one train step on the card against
    the CPU.
+6. Serve recurrentgemma-2b at full width (26 layers, d 2560, MQA 10/1,
+   head_dim 256, vocab 256000, window 2048) in bf16, random weights from
+   seed 0, through ServingEngine: the workload of phase 3, greedy and T
+   0.7.  Every request completes; B4 launched 18 times per prefill call
+   (2 x 8 groups + 2 tail blocks) and B1 8 times per sub-step;
+   decode_block 1 == 8 token streams; a finished and a never-used row
+   keep their whole state bitwise across a decode block.  One run under
+   torch.profiler.  Then a long run that wraps the ring: 4 requests of
+   2000-2040 prompt tokens on 4 slots, max_len 4096, 64 new tokens (B4 at
+   the 2048 bucket, positions past W = 2048).
+7. Reference: recurrentgemma's reduced config at d_model 256 (head_dim
+   64, window 16), f32, on the card against the CPU: prefill, then 24
+   decode steps past the window, logits within 1e-3.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit, and before that one JSON line listing the kernels
-(B1, B2, B3) with their launches on the main paths, errors, times and
-bounds.
+(B1 at dh 64, B2, B3, B4, and B1 at dh 256 as its own row) with their
+launches on their main paths (B1's dh-64 row phase 3, its dh-256 row
+phase 6), errors, times and bounds.
 """
 import json
 import os
@@ -107,14 +131,14 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-def bound(lens, ps, dtype, itemsize, b):
+def bound(lens, ps, dtype, itemsize, b, h=H, hkv=HKV, dh=DH):
     """Least time for the same work: each input byte read once, each output
     byte written once, or the operations at the card's peak, the larger."""
     kv = sum(lens)
-    nbytes = 2 * kv * HKV * DH * itemsize + 2 * b * H * DH * itemsize + 4 * b
+    nbytes = 2 * kv * hkv * dh * itemsize + 2 * b * h * dh * itemsize + 4 * b
     if ps:
         nbytes += 4 * sum(-(-n // ps) for n in lens)
-    ops = 4 * kv * H * DH
+    ops = 4 * kv * h * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -428,10 +452,11 @@ def serve_phase(torch):
     return totals
 
 
-def profile_window(torch, label, fn):
+def profile_window(torch, label, fn, watch=()):
     """fn() (which returns its own wall time) under torch.profiler: device
-    busy share of the wall time and the kernels that take the most device
-    time."""
+    busy share of the wall time, the kernels that take the most device
+    time, and the device time of kernels whose names hold a `watch`
+    string."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -450,6 +475,11 @@ def profile_window(torch, label, fn):
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.self_device_time_total / 1e6 / busy:6.1%} x{e.count:<6d} "
               f"{e.key[:90]}", flush=True)
+    for name in watch:
+        hit = [e for e in events if name in e.key]
+        t = sum(e.self_device_time_total for e in hit) / 1e6
+        print(f"    {name}: {t * 1e3:.2f} ms = {t / busy:.1%} of device "
+              f"time over {sum(e.count for e in hit)} launches", flush=True)
 
 
 def train_phase(torch):
@@ -636,6 +666,336 @@ def reference_phase(torch):
           f"logits max abs err {worst:.3e} (tol 1e-3)", flush=True)
 
 
+def scan_bound(b, s, d, itemsize):
+    """Least time for B4's work: a and x read once and h written once at
+    the HBM rate, or 2 FLOP per element at the f32 rate, the larger."""
+    t_bytes = 3 * b * s * d * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * s * d / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rglru_kernel_phase(torch, timer):
+    """B4 against its plain version, and B1 at recurrentgemma-2b's decode
+    widths (H 10, Hkv 1, dh 256, M = W = 2048); returns their rows of the
+    kernels line, B1's at the serve run's rings."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from repro_torch.kernels.rglru_scan import (rglru_scan,
+                                                rglru_scan_reference)
+    dev = torch.device("cuda")
+
+    def inputs(b, s, d, dt, seed):
+        g = torch.Generator().manual_seed(seed)
+        a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g)
+        return a.to(dev, dt), torch.randn(b, s, d, generator=g).to(dev, dt)
+
+    serve_err = None
+    for b, s, d, dtype in ((16, 256, 2560, "float32"),
+                           (3, 100, 70, "float32"),
+                           (2, 2048, 2560, "float32"),
+                           (1, 512, 256, "bfloat16")):
+        a, x = inputs(b, s, d, getattr(torch, dtype), b * s + d)
+        out = rglru_scan(a, x)
+        ref = rglru_scan_reference(a, x)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and out.dtype == x.dtype,
+              f"B4 non-finite or wrong dtype at {b}x{s}x{d}")
+        if dtype == "float32":
+            check(torch.equal(out, ref), f"B4 f32 {b}x{s}x{d}: not bitwise "
+                  f"equal to the plain version (max abs err {err})")
+        else:
+            check(err <= 0.1, f"B4 bf16 {b}x{s}x{d}: max abs err {err}")
+        if (b, s, d) == (16, 256, 2560):
+            serve_err = err
+        print(f"  B4 B={b} S={s} D={d} {dtype:8s}: max abs err {err:.3e} "
+              f"({'bitwise' if dtype == 'float32' else 'tol 0.1'})",
+              flush=True)
+    a, x = inputs(2, 300, 130, torch.float32, 5)
+    check(torch.equal(rglru_scan(torch.zeros_like(a), x), x),
+          "B4: a == 0 does not give x")
+    xi = torch.randint(-8, 9, (2, 300, 130), generator=torch.Generator()
+                       .manual_seed(6)).float().to(dev)
+    check(torch.equal(rglru_scan(torch.ones_like(xi), xi), xi.cumsum(1)),
+          "B4: a == 1 does not give the cumsum of integer-valued x")
+    a, x = (t.requires_grad_() for t in inputs(1, 128, 128, torch.float32,
+                                               7))
+    go = torch.randn(1, 128, 128, generator=torch.Generator().manual_seed(8)
+                     ).to(dev)
+    got = torch.autograd.grad(rglru_scan(a, x), (a, x), go)
+    want = torch.autograd.grad(rglru_scan_reference(a, x), (a, x), go)
+    gerr = max((u - w).abs().max().item() for u, w in zip(got, want))
+    check(gerr <= 1e-5, f"B4 gradients differ from the plain VJP by {gerr}")
+    print(f"  B4: a == 0 gives x, a == 1 the cumsum (bitwise); gradients "
+          f"vs autograd through the plain version: max abs err {gerr:.3e} "
+          f"(tol 1e-5)", flush=True)
+
+    times = {}
+    for b, s, d in ((16, 256, 2560), (4, 2048, 2560)):
+        a, x = inputs(b, s, d, torch.float32, 9)
+        ms = timer.ms(lambda: rglru_scan(a, x))
+        plain_ms = timer.ms(lambda: rglru_scan_reference(a, x), iters=5)
+        bms, by = scan_bound(b, s, d, 4)
+        times[(b, s, d)] = (ms, plain_ms, bms, by)
+        print(f"  rglru_scan @ B={b} S={s} D={d} f32: {ms * 1e3:.2f} us | "
+              f"bound {bms * 1e3:.2f} us ({by}) | plain "
+              f"{plain_ms * 1e3:.2f} us | library: none", flush=True)
+
+    # B1 at dh 256, group 10, a 2048-slot ring
+    h, hkv, dh, m = 10, 1, 256, 2048
+    b1_err = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        g = torch.Generator().manual_seed(256)
+        q = torch.randn(16, h, dh, generator=g).to(dev, dt)
+        kc = torch.randn(16, m, hkv, dh, generator=g).to(dev, dt)
+        vc = torch.randn(16, m, hkv, dh, generator=g).to(dev, dt)
+        lens_l = torch.randint(1, m + 1, (16,), generator=g).tolist()
+        lens_l[:5] = [0, m, 1, 33, m - 1]
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        out = decode_attention(q, kc, vc, lens)
+        ref = decode_attention_reference(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(out).all()), "B1 dh 256 non-finite")
+        check(err <= TOL[dtype], f"B1 dh 256 {dtype}: max abs err {err} > "
+              f"{TOL[dtype]}")
+        check(bool((out[0] == 0).all()), "B1 dh 256 kv_len == 0 row not 0")
+        b1_err[dtype] = err
+        print(f"  B1 H=10 Hkv=1 dh=256 M=2048 B=16 {dtype:8s}: max abs err "
+              f"{err:.3e} (tol {TOL[dtype]})", flush=True)
+    # times in bf16: the serve run's rings (kv_len <= 232) and full rings
+    b1_times = {}
+    for b, cap in ((16, 232), (4, 2048)):
+        g = torch.Generator().manual_seed(cap)
+        q = torch.randn(b, h, dh, generator=g).to(dev, torch.bfloat16)
+        kc = torch.randn(b, m, hkv, dh, generator=g).to(dev, torch.bfloat16)
+        vc = torch.randn(b, m, hkv, dh, generator=g).to(dev, torch.bfloat16)
+        lens_l = ([cap] * b if cap == m else
+                  torch.randint(4, cap + 1, (b,), generator=g).tolist())
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        mask = (torch.arange(m, device=dev)[None] <
+                lens[:, None])[:, None, None, :]
+        q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        ms = timer.ms(lambda: decode_attention(q, kc, vc, lens))
+        plain_ms = timer.ms(lambda: decode_attention_reference(q, kc, vc,
+                                                               lens), iters=20)
+        sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True))
+        bms, by = bound(lens_l, 0, "bfloat16", 2, b, h, hkv, dh)
+        b1_times[cap] = (ms, plain_ms, sdpa_ms, bms, by)
+        print(f"  decode_attention dh 256 @ B={b} M=2048 kv_len "
+              f"{'= 2048' if cap == m else '<= 232'} bf16: {ms * 1e3:.2f} us "
+              f"| bound {bms * 1e3:.2f} us ({by}) | plain "
+              f"{plain_ms * 1e3:.2f} us | SDPA {sdpa_ms * 1e3:.2f} us",
+              flush=True)
+    ms, plain_ms, bms, by = times[(16, 256, 2560)]
+    b4 = {"name": "rglru_scan", "route": "cuda",
+          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+          "replaces": "src/repro/kernels/rglru_scan/kernel.py:26",
+          "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "library_ms": None}
+    ms, plain_ms, sdpa_ms, bms, by = b1_times[232]
+    b1 = {"name": "decode_attention_dh256", "route": "cuda",
+          "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                    "decode_attention.cu",
+          "replaces": "src/repro/kernels/decode_attention/kernel.py:45",
+          "max_abs_err": b1_err["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms}
+    return b4, b1
+
+
+def _rglru_workload(np, vocab, n_req, rng):
+    """Phase 3's prompt mix: 4-200 tokens, half behind one of two shared
+    32/48-token heads."""
+    heads = [rng.integers(0, vocab, n).astype(np.int32) for n in (32, 48)]
+    prompts = []
+    for i in range(n_req):
+        tail = rng.integers(0, vocab, int(rng.integers(4, 153))
+                            ).astype(np.int32)
+        prompts.append(np.concatenate([heads[i % 2], tail]) if i % 4 < 2
+                       else tail)
+    return prompts
+
+
+def rglru_serve_phase(torch):
+    """recurrentgemma-2b at full width through ServingEngine; returns the
+    (B4, B1) launches over the phase's served runs."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    dev = torch.device("cuda")
+    cfg = registry.get_config("recurrentgemma-2b")
+    fns = registry.model_fns(cfg)
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator().manual_seed(0), cfg, dev)
+    n_params = sum(t.numel() for grp in params.values()
+                   for t in (grp.values() if isinstance(grp, dict) else [grp]))
+    check(n_params == cfg.param_count(), "param count")
+    params = fns.cast_params(params, cfg)     # one bf16 copy for every run
+    torch.cuda.synchronize()
+    print(f"  {n_params / 1e9:.3f}B params from seed 0 on the card (f32 "
+          f"masters dropped after the bf16 cast): "
+          f"{time.perf_counter() - t0:.1f} s | "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    n_rec = 2 * cfg.n_groups + cfg.n_tail_rec
+    slots, max_len, n_req, max_new = 16, 512, 32, 32
+    prompts = _rglru_workload(np, cfg.vocab_size, n_req,
+                              np.random.default_rng(0))
+    check(min(map(len, prompts)) >= 4 and max(map(len, prompts)) <= 200,
+          "prompt lengths outside 4-200")
+    totals = [0, 0]
+
+    def run(temp, block, reqs, max_len=max_len, slots=slots, new=max_new):
+        eng = ServingEngine(cfg, fns, params, EngineConfig(
+            max_batch=slots, max_len=max_len, decode_block=block))
+        calls = []
+        prefill = eng.spec.prefill
+
+        def counted(*a, **k):
+            calls.append(1)
+            return prefill(*a, **k)
+        eng.spec.prefill = counted
+        for uid, p in enumerate(reqs):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=new,
+                               temperature=temp))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rglru_scan_fwd.launches = 0
+        decode_attention.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = (rglru_scan_fwd.launches, decode_attention.launches)
+        s = eng.stats
+        check(len(done) == len(reqs) and all(
+            len(r.generated) == new for r in done),
+            f"not every request completed (T {temp}, block {block})")
+        sub = s["decode_blocks"] * block
+        want = (n_rec * len(calls), cfg.n_groups * sub)
+        check(launches == want, f"launches (B4, B1) {launches} != {want} "
+              f"({n_rec} x {len(calls)} prefill calls, {cfg.n_groups} x "
+              f"{sub} sub-steps)")
+        totals[0] += launches[0]
+        totals[1] += launches[1]
+        print(f"  serve T={temp} decode_block {block}: {s['tokens']} tokens "
+              f"in {dt:.3f} s = {s['tokens'] / dt:.1f} tok/s | "
+              f"{s['host_syncs'] / s['tokens']:.4f} host syncs/token | "
+              f"{s['decode_blocks']} blocks, {len(calls)} prefill calls | "
+              f"launches B4 {launches[0]} B1 {launches[1]} | peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        return eng, {r.uid: r.generated for r in done}, dt
+
+    run(0.0, 8, prompts[:4], new=4)      # warm-up: cuBLAS, allocator
+    streams = {}
+    for temp in (0.0, 0.7):
+        for block in (8, 1):
+            eng, streams[(temp, block)], _ = run(temp, block, prompts)
+            del eng
+        check(streams[(temp, 1)] == streams[(temp, 8)],
+              f"decode_block 1 != 8 token streams at T={temp}")
+        print(f"  T={temp}: decode_block 1 == 8 token streams (bitwise)",
+              flush=True)
+    differ = sum(a != b for uid in streams[(0.0, 8)] for a, b in
+                 zip(streams[(0.0, 8)][uid], streams[(0.7, 8)][uid]))
+    print(f"  T=0.7 vs greedy: {differ} of {n_req * max_new} tokens differ",
+          flush=True)
+    profile_window(torch, "recurrentgemma-2b, greedy",
+                   lambda: run(0.0, 8, prompts)[2],
+                   watch=("rglru_scan_kernel", "decode_attention_kernel"))
+
+    # inactive rows: one request finished at prefill, one slot never used
+    eng = ServingEngine(cfg, fns, params, EngineConfig(
+        max_batch=slots, max_len=max_len, decode_block=8))
+    for uid, new in enumerate((1, 20, 20)):
+        eng.submit(Request(uid=uid, prompt=prompts[uid],
+                           max_new_tokens=new))
+    eng._fill_slots()
+    check(eng.slots[0] is None and eng.slots[1] is not None,
+          "the one-token request did not finish at prefill")
+
+    def rows(i):
+        st = eng.cache
+        return [st["pos"][i].clone()] + [leaf[:, i].clone() for k in
+                                         sorted(st) if k != "pos"
+                                         for leaf in st[k]]
+    before = {i: rows(i) for i in (0, slots - 1)}
+    eng._decode_block()
+    for i, leaves in before.items():
+        check(all(torch.equal(a, b) for a, b in zip(rows(i), leaves)),
+              f"inactive row {i}'s state changed across a decode block")
+    print("  a finished row and a never-used row keep their whole state "
+          "(carries, conv tails, rings, pos) bitwise across a decode block",
+          flush=True)
+    del eng
+
+    # the long run: prompts of 2000-2040 tokens, positions past W = 2048
+    rng = np.random.default_rng(1)
+    long = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in (2000, 2013, 2027, 2040)]
+    eng, got, dt = run(0.7, 8, long, max_len=4096, slots=4, new=64)
+    top = int(eng.cache["pos"].max())
+    check(top > cfg.window, f"long run ended at pos {top} <= {cfg.window}")
+    print(f"  long run: 4 x 2000-2040 prompt tokens + 64 new, bucket 2048, "
+          f"positions to {top} (ring of {cfg.window} wrapped)", flush=True)
+    del eng
+
+    # full-width logits from one prefill call: finite, of the right shape
+    spec = fns.decode_spec(cfg, dev)
+    toks = torch.tensor(np.stack([prompts[0][:16], prompts[1][:16]]),
+                        device=dev)
+    logits, _ = spec.prefill(params, spec.init_state(2, 64), toks,
+                             torch.tensor([16, 9], dtype=torch.int32,
+                                          device=dev),
+                             torch.ones(2, dtype=torch.bool, device=dev))
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "full-width logits")
+    return totals
+
+
+def rglru_reference(torch):
+    """recurrentgemma reduced at d_model 256 (head_dim 64, window 16),
+    f32: prefill and 24 decode steps on the card against the CPU."""
+    from repro_torch.models import registry
+    cfg = registry.get_reduced_config("recurrentgemma-2b", d_model=256,
+                                      compute_dtype="float32")
+    fns = registry.model_fns(cfg)
+    cpu = fns.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.cuda()) for k, v in cpu.items()}
+    toks = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16],
+                         [7] * 12])
+    lens = torch.tensor([12, 5], dtype=torch.int32)
+    admit = torch.ones(2, dtype=torch.bool)
+    out = {}
+    for d, p in (("cpu", cpu), ("cuda", gpu)):
+        spec = fns.decode_spec(cfg, d)
+        out[d] = spec, p, spec.prefill(p, spec.init_state(2, 64),
+                                       toks.to(d), lens.to(d), admit.to(d))
+    (sc, pc, (lc, stc)), (sg, pg, (lg, stg)) = out["cpu"], out["cuda"]
+    worst = 0.0
+    for _ in range(24):
+        worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        nxt = lc.argmax(-1, keepdim=True).to(torch.int32)
+        lc, stc = sc.decode(pc, stc, nxt)
+        lg, stg = sg.decode(pg, stg, nxt.cuda())
+    worst = max(worst, (lg.cpu() - lc).abs().max().item())
+    check(int(stc["pos"].max()) > 2 * cfg.window, "decode did not pass the "
+          "window")
+    check(worst <= 1e-3, f"card vs CPU logits differ by {worst}")
+    print(f"  recurrentgemma reduced (d 256, head_dim 64, window 16) f32, "
+          f"prefill + 24 decode steps to pos {int(stc['pos'].max())}: card "
+          f"vs CPU logits max abs err {worst:.3e} (tol 1e-3)", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -645,6 +1005,7 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels.decode_attention import kernel as b12
     from repro_torch.kernels.flash_attention import kernel as b3
+    from repro_torch.kernels.rglru_scan import kernel as b4
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -656,7 +1017,7 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
 
     print("phase 1: build", flush=True)
-    libs = (b12.LIBRARY, b3.LIBRARY)
+    libs = (b12.LIBRARY, b3.LIBRARY, b4.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load) for lib in libs]:
             f.result()
@@ -672,6 +1033,9 @@ def main():
     rows = kernel_phase(torch, timer)
     print("phase 2b: flash-attention kernel vs plain version", flush=True)
     rows.append(flash_phase(torch, timer))
+    print("phase 2c: RG-LRU scan kernel vs plain version; B1 at head_dim "
+          "256", flush=True)
+    rows.extend(rglru_kernel_phase(torch, timer))
 
     print("phase 3: serve suncatcher-lm-100m (full width, bf16)", flush=True)
     totals = serve_phase(torch)
@@ -695,6 +1059,15 @@ def main():
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = True
     check(rows[2]["launches"] > 0, "the flash kernel never launched")
+    torch.cuda.empty_cache()
+
+    print("phase 6: serve recurrentgemma-2b (full width, bf16)", flush=True)
+    rows[3]["launches"], rows[4]["launches"] = rglru_serve_phase(torch)
+    check(rows[3]["launches"] > 0 and rows[4]["launches"] > 0,
+          "B4 or B1 never launched serving recurrentgemma-2b")
+
+    print("phase 7: recurrentgemma reference check", flush=True)
+    rglru_reference(torch)
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -20,6 +20,9 @@
 // G x 32 scores, takes the online-softmax step with one warp per query head
 // (butterfly shuffles, identical on every lane), and folds P.V into an f32
 // accumulator in shared memory.  Rows with kv_len == 0 write exact zeros.
+// Head dims 64, 128 and 256 are instances; at dh 256 and a GQA group of 10
+// (recurrentgemma-2b's MQA) the CTA's shared memory is ~87.5 KB, above the
+// 48 KB default, so `launch_typed` opts in to it.
 //
 // Bound.  The work is O(1) FLOP per byte: it moves
 //   sum_b 2 * kv_len[b] * Hkv * dh * itemsize  bytes of K/V
@@ -220,6 +223,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
   if (dtype == 0 && dh == 128) DA_CASE(float, 128);
   if (dtype == 1 && dh == 64) DA_CASE(__nv_bfloat16, 64);
   if (dtype == 1 && dh == 128) DA_CASE(__nv_bfloat16, 128);
+  if (dtype == 0 && dh == 256) DA_CASE(float, 256);
+  if (dtype == 1 && dh == 256) DA_CASE(__nv_bfloat16, 256);
 #undef DA_CASE
   return (int)cudaErrorInvalidValue;
 }

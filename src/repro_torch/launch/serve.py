@@ -2,12 +2,16 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
       --requests 8 --slots 4 --max-len 128 --decode-block 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      --arch recurrentgemma-2b --requests 8 --slots 4 --max-len 128
 
 It runs on the CUDA card unless `--device cpu` is given; with no card and
 the default device it exits with an error rather than fall back.  Weights
 are random, from a seeded generator.  Besides the engine's stats it prints
-how many times each decode-attention kernel was launched (0 on the CPU,
-where the kernels' plain versions run).
+how many times each decode-attention kernel and the RG-LRU scan kernel
+were launched (0 on the CPU, where the kernels' plain versions run).
+`--page-size` with a recurrent (carry) family is refused: its state has
+nothing to page.
 """
 import argparse
 import time
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
 from repro_torch.models import registry
 from repro_torch.serving import EngineConfig, Request, ServingEngine
 
@@ -64,13 +69,16 @@ def main(argv=None):
            else registry.get_reduced_config(args.arch))
     fns = registry.model_fns(cfg)
     params = fns.init(torch.Generator().manual_seed(0), cfg, device)
-    eng = ServingEngine(cfg, fns, params,
-                        EngineConfig(max_batch=args.slots,
-                                     max_len=args.max_len,
-                                     decode_block=args.decode_block,
-                                     page_size=args.page_size,
-                                     pool_pages=args.pool_pages,
-                                     prefix_cache=args.prefix_cache))
+    try:
+        eng = ServingEngine(cfg, fns, params,
+                            EngineConfig(max_batch=args.slots,
+                                         max_len=args.max_len,
+                                         decode_block=args.decode_block,
+                                         page_size=args.page_size,
+                                         pool_pages=args.pool_pages,
+                                         prefix_cache=args.prefix_cache))
+    except ValueError as err:       # e.g. --page-size on a carry family
+        raise SystemExit(f"--arch {args.arch}: {err}") from None
     rng = np.random.default_rng(0)
     for uid in range(args.requests):
         eng.submit(Request(
@@ -80,7 +88,8 @@ def main(argv=None):
                                 ).astype(np.int32),
             max_new_tokens=args.max_new_tokens,
             temperature=args.temperature))
-    launches0 = (decode_attention.launches, paged_decode_attention.launches)
+    launches0 = (decode_attention.launches, paged_decode_attention.launches,
+                 rglru_scan_fwd.launches)
     t0 = time.perf_counter()
     done = eng.run()
     if device.type == "cuda":
@@ -105,7 +114,8 @@ def main(argv=None):
               f"{s['admission_stalls']} admission stalls")
     print(f"  decode-attention kernel launches: dense "
           f"{decode_attention.launches - launches0[0]}, paged "
-          f"{paged_decode_attention.launches - launches0[1]}")
+          f"{paged_decode_attention.launches - launches0[1]}; rglru-scan "
+          f"kernel launches: {rglru_scan_fwd.launches - launches0[2]}")
 
 
 if __name__ == "__main__":

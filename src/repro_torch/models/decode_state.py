@@ -1,25 +1,30 @@
 """DecodeState specs for the serving engine: the transformer KV family,
-dense and paged.
+dense and paged, and the RG-LRU carry family.
 
 A spec tells the engine how to allocate the per-slot state
 (`init_state`), advance it one token (`decode`), prefill a ragged bucket
 (`prefill`, admit-masked), hold inactive rows (`freeze`), and, for the
-paged layout, map and free pages (`advance`, `release`).  The paged
-allocator (a free-page stack, its top and per-page refcounts) is device
-tensors updated by whole-batch tensor ops, so alloc and free run inside
-the engine's decode block with no host round-trip.
+paged layout, map and free pages (`advance`, `release`).  The base class
+carries the defaults of a carry family: a whole-tree `freeze`, identity
+`advance` and `release`.  The paged allocator (a free-page stack, its
+top and per-page refcounts) is device tensors updated by whole-batch
+tensor ops, so alloc and free run inside the engine's decode block with
+no host round-trip.
 
-Large buffers (the dense cache, the page pools) are written in place; the
-small bookkeeping tensors (pos, page table, free stack, refcounts, prefix
-table) are replaced, never mutated, so `freeze` can still read the values
-from before a sub-step.  The migration and delta hooks of the reference
-wait for the router slice.
+Large buffers (the dense cache, the page pools, the RG-LRU attention
+ring) are written in place; the small tensors (pos, page table, free
+stack, refcounts, prefix table, the RG-LRU carries) are replaced, never
+mutated, so `freeze` can still read the values from before a sub-step.
+The migration and delta hooks of the reference wait for the router
+slice.
 """
 from __future__ import annotations
 
 import torch
 
+from . import rglru as _rglru
 from . import transformer as _transformer
+from .rglru import RGLRUConfig
 from .transformer import TransformerConfig
 
 
@@ -31,11 +36,28 @@ def _bcast(vec, ndim: int, ax: int):
     return vec.reshape(shape)
 
 
+def _tree_map(fn, tree, *rest):
+    """fn leaf by leaf over nested dicts and tuples of one structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, *leaves) for leaves in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
 def admit_merge(state, fresh, axes, admit):
     """Overwrite `admit`-masked slot rows of `state` with `fresh` rows
-    (dicts of tensors with matching keys; `axes` gives each slot axis)."""
-    return {k: torch.where(_bcast(admit, state[k].dim(), axes[k]), fresh[k],
-                           state[k]) for k in state}
+    (trees of tensors of one structure; `axes` gives each slot axis)."""
+    return _tree_map(lambda o, n, ax: torch.where(_bcast(admit, o.dim(), ax),
+                                                 n, o), state, fresh, axes)
+
+
+def _hold(new, old, active, axes):
+    """`new` where `active`, else `old`, row by row over a tree."""
+    return _tree_map(
+        lambda n, o, ax: torch.where(_bcast(active, n.dim(), ax), n, o),
+        new, old, axes)
 
 
 def _set_drop(dst, idx, vals):
@@ -112,12 +134,43 @@ def _scatter_logical(pool, ptab, vals, write):
 # --------------------------------------------------------------------------
 # specs
 # --------------------------------------------------------------------------
-class TransformerDecodeState:
-    """KV family: (L, B, M, Hkv, dh) cache rows plus a per-row pos."""
+class DecodeStateSpec:
+    """Base: the carry-family defaults."""
 
-    def __init__(self, cfg: TransformerConfig, device="cuda"):
+    state_kind = "carry"
+
+    def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+
+    def freeze(self, new, old, active):
+        """Hold inactive rows across a decode sub-step: recurrent carries
+        advance every sub-step, so inactive rows keep their whole old
+        tree.  Right only for leaves that `decode` returns fresh; a family
+        that writes a leaf in place overrides this."""
+        return _hold(new, old, active, self.batch_axes())
+
+    def advance(self, state, active):
+        """Pre-decode bookkeeping for `active` rows (paged: map the next
+        page); identity for row-partitioned families."""
+        return state
+
+    def release(self, state, drop):
+        """Return per-row resources of `drop`-masked rows (paged: free
+        their pages); identity for row-partitioned families."""
+        return state
+
+
+class TransformerDecodeState(DecodeStateSpec):
+    """KV family: (L, B, M, Hkv, dh) cache rows plus a per-row pos."""
+
+    state_kind = "kv"
+
+    def batch_axes(self):
+        return {"k": 1, "v": 1, "pos": 0}
+
+    def length_axes(self):
+        return {"k": 2, "v": 2, "pos": -1}
 
     def init_state(self, batch, max_len, dtype=None):
         st = _transformer.init_cache(self.cfg, batch, max_len, dtype,
@@ -150,12 +203,6 @@ class TransformerDecodeState:
         # held), so only pos needs the select
         return {**new, "pos": torch.where(active, new["pos"], old["pos"])}
 
-    def advance(self, state, active):
-        return state
-
-    def release(self, state, drop):
-        return state
-
 
 class PagedTransformerDecodeState(TransformerDecodeState):
     """Paged KV family: a shared pool of physical pages (L, P+1, ps, Hkv,
@@ -177,6 +224,7 @@ class PagedTransformerDecodeState(TransformerDecodeState):
                  max_batch: int, max_len: int, pool_pages=None,
                  prefix_entries: int = 0, device="cuda"):
         super().__init__(cfg, device)
+        self.state_kind = "kv-paged"
         if cfg.window is not None:
             raise ValueError("paged KV serving does not support local "
                              "(windowed) attention yet")
@@ -311,22 +359,88 @@ class PagedTransformerDecodeState(TransformerDecodeState):
         return logits, new
 
 
-def paged_spec(spec: TransformerDecodeState, *, page_size: int,
+class RGLRUDecodeState(DecodeStateSpec):
+    """Griffin/RecurrentGemma carry: per-layer (h, conv) RG-LRU states,
+    an O(window) local-attention ring and a per-row pos.  The ring's slots
+    are position-modular, not cursor-contiguous, so no leaf has a length
+    axis (all -1), as in the reference.
+
+    `decode` writes the ring in place at slot pos % W for every row,
+    inactive ones included; it keeps the slots it overwrote on the spec,
+    and `freeze` writes them back into inactive rows before the base
+    class's select holds the other leaves.  So an inactive row's whole
+    state stays bit-stable across a sub-step, as the reference's
+    whole-tree select keeps it."""
+
+    _ring_held = None
+
+    def init_state(self, batch, max_len, dtype=None):
+        st = _rglru.init_cache(self.cfg, batch, max_len, dtype,
+                               device=self.device)
+        st["pos"] = torch.zeros((batch,), dtype=torch.int32,
+                                device=self.device)
+        return st
+
+    def batch_axes(self):
+        ax = {"rec_a": (1, 1), "rec_b": (1, 1), "attn": (1, 1), "pos": 0}
+        if self.cfg.n_tail_rec:
+            ax["tail"] = (1, 1)
+        return ax
+
+    def length_axes(self):
+        return _tree_map(lambda _: -1, self.batch_axes())
+
+    def decode(self, params, state, last):
+        ck, cv = state["attn"]
+        rows = torch.arange(ck.shape[1], device=ck.device)
+        slot = (state["pos"] % ck.shape[2]).long()
+        held = (ck[:, rows, slot], cv[:, rows, slot])     # copies
+        self._ring_held = held, rows, slot
+        return _rglru.decode_step(params, state, last, self.cfg)
+
+    def prefill(self, params, state, tokens, lens, admit, page_ops=None):
+        logits, fresh = _rglru.prefill_cells(params, tokens, lens, self.cfg)
+        return logits, admit_merge(state, fresh, self.batch_axes(), admit)
+
+    def freeze(self, new, old, active):
+        (hk, hv), rows, slot = self._ring_held
+        self._ring_held = None
+        keep = active[None, :, None, None]
+        for ring, held in zip(new["attn"], (hk, hv)):
+            ring[:, rows, slot] = torch.where(keep, ring[:, rows, slot], held)
+        rest = super().freeze({k: v for k, v in new.items() if k != "attn"},
+                              old, active)
+        return {k: v if k == "attn" else rest[k] for k, v in new.items()}
+
+
+def paged_spec(spec: DecodeStateSpec, *, page_size: int,
                max_batch: int, max_len: int, pool_pages=None,
                prefix_entries: int = 0) -> PagedTransformerDecodeState:
-    """Wrap a transformer KV spec's config in the paged-KV spec."""
+    """Wrap a transformer KV spec's config in the paged-KV spec.  Carry
+    families keep O(1) rows and have nothing to page."""
     if type(spec) is not TransformerDecodeState:
-        raise ValueError(f"page_size > 0 requires a transformer KV family; "
-                         f"{type(spec).__name__} does not page")
+        raise ValueError(
+            f"page_size > 0 requires a transformer KV family; "
+            f"{type(spec).__name__} (state_kind={spec.state_kind!r}) "
+            f"does not page")
     return PagedTransformerDecodeState(
         spec.cfg, page_size=page_size, max_batch=max_batch, max_len=max_len,
         pool_pages=pool_pages, prefix_entries=prefix_entries,
         device=spec.device)
 
 
-def decode_spec(cfg, device="cuda") -> TransformerDecodeState:
+_FAMILIES = {
+    TransformerConfig: TransformerDecodeState,
+    RGLRUConfig: RGLRUDecodeState,
+}
+
+
+def decode_spec(cfg, device="cuda") -> DecodeStateSpec:
     """Config dataclass -> its family's DecodeState spec."""
-    if isinstance(cfg, TransformerConfig):
-        return TransformerDecodeState(cfg, device)
-    raise KeyError(f"no decode-state family registered for config type "
-                   f"{type(cfg).__name__}; ported: TransformerConfig")
+    for klass, spec in _FAMILIES.items():
+        if isinstance(cfg, klass):
+            return spec(cfg, device)
+    raise KeyError(
+        f"no decode-state family registered for config type "
+        f"{type(cfg).__name__}; registered families: "
+        f"{sorted(k.__name__ for k in _FAMILIES)}")

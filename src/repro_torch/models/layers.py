@@ -1,4 +1,5 @@
-"""Shared layers of the decoder LM in PyTorch: norms, RoPE, attention, MLP.
+"""Shared layers of the decoder LMs in PyTorch: norms, RoPE, attention,
+MLPs.
 
 `attention` dispatches by shape, never by a switch: a one-row query with a
 `kv_len` and no window goes to the decode-attention kernels (dense, or
@@ -7,7 +8,9 @@ Python int 0, no window, no `kv_len`, Sq == Skv > 1) goes to the
 flash-attention kernel, under the reference's own condition for it.  Each
 wrapper runs its CUDA kernel for CUDA tensors and the plain version for
 CPU tensors.  Everything else (the engine's ragged prefill, windows) runs
-`attention_ref`.  The chunked path of the reference is not ported yet.
+`attention_ref`: the RG-LRU model's windowed prefill goes there, and its
+ring decode (one row, `kv_len`, no window) to the dense decode kernel.
+The chunked path of the reference is not ported yet.
 """
 from __future__ import annotations
 
@@ -124,3 +127,8 @@ def attention(q, k, v, *, page_table=None, causal: bool = True, window=None,
 def swiglu(x, wi_gate, wi_up, wo):
     """LLaMA-style gated MLP: (B,S,D) x (D,F)x2 x (F,D)."""
     return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+
+
+def geglu(x, wi_gate, wi_up, wo):
+    """Gemma-style gated MLP, tanh-approximate GELU on the gate."""
+    return (F.gelu(x @ wi_gate, approximate="tanh") * (x @ wi_up)) @ wo

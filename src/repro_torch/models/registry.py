@@ -1,16 +1,23 @@
 """Architecture registry: --arch <id> -> (config, model functions).
 
-Only the transformer family is ported so far, and of its configs only the
-demo LM."""
+Two families are ported so far: the transformer (of its configs, the demo
+LM) and the RG-LRU hybrid (recurrentgemma-2b)."""
 from __future__ import annotations
 
 import importlib
 from dataclasses import replace
 from types import SimpleNamespace
 
+from .rglru import RGLRUConfig
 from .transformer import TransformerConfig
 
-ARCH_IDS = ["suncatcher-lm-100m"]
+ARCH_IDS = ["suncatcher-lm-100m", "recurrentgemma-2b"]
+
+# config dataclass -> model module
+_FAMILIES = {
+    RGLRUConfig: "repro_torch.models.rglru",
+    TransformerConfig: "repro_torch.models.transformer",
+}
 
 
 def _config_module(arch: str):
@@ -22,16 +29,22 @@ def _config_module(arch: str):
 
 def model_fns(cfg) -> SimpleNamespace:
     """Config dataclass -> the model module's interface: init / forward /
-    loss_fn, the serving pair init_cache / decode_step, and decode_spec
+    loss_fn, the serving pair init_cache / decode_step, cast_params (the
+    one compute-dtype copy the engine serves from) and decode_spec
     (models/decode_state.py), the per-slot state spec the engine uses."""
-    if not isinstance(cfg, TransformerConfig):
+    for klass, modname in _FAMILIES.items():
+        if isinstance(cfg, klass):
+            mod = importlib.import_module(modname)
+            break
+    else:
         raise KeyError(f"no model family registered for config type "
-                       f"{type(cfg).__name__}; ported: TransformerConfig")
-    from . import transformer as mod
+                       f"{type(cfg).__name__}; registered families: "
+                       f"{sorted(k.__name__ for k in _FAMILIES)}")
     from .decode_state import decode_spec
     return SimpleNamespace(init=mod.init_params, forward=mod.forward,
                            loss_fn=mod.loss_fn, init_cache=mod.init_cache,
                            decode_step=mod.decode_step,
+                           cast_params=mod.cast_params,
                            decode_spec=decode_spec)
 
 

@@ -1,8 +1,10 @@
 """Continuous-batching serving engine on one device, in PyTorch.
 
-A fixed pool of `max_batch` decode slots shares one KV cache (dense rows,
-or a paged pool).  One decode block runs `decode_block` sub-steps of
-decode -> sample -> bookkeeping for every active slot with no host sync:
+A fixed pool of `max_batch` decode slots shares one decode state: a KV
+cache (dense rows, or a paged pool) or a recurrent family's carries; the
+family's DecodeState spec (`models/decode_state.py`) says how.  One
+decode block runs `decode_block` sub-steps of decode -> sample ->
+bookkeeping for every active slot with no host sync:
 per-slot state (last token, budget, active / eos / temperature, the
 request's PRNG stream) lives on the device, finished rows are masked out
 inside the block, and the host drains the (B, N) token block with its
@@ -32,7 +34,6 @@ import numpy as np
 import torch
 
 from repro_torch.models import decode_state as ds
-from repro_torch.models.transformer import cast_params
 from repro_torch.sync import no_host_sync
 
 from . import prng
@@ -115,7 +116,7 @@ class ServingEngine:
         self.model_cfg = cfg
         self.ecfg = ecfg
         self.device = params["embed"].device
-        self.params = cast_params(params, cfg)
+        self.params = fns.cast_params(params, cfg)
         self.spec = fns.decode_spec(cfg, self.device)
         if ecfg.page_size:
             self.spec = ds.paged_spec(

@@ -1,7 +1,9 @@
 """Card-only tests of the PyTorch port: the CUDA decode-attention (B1,
-B2) and flash-attention (B3) kernels against their plain versions at the
-demo LM's full widths, and the engine on the card.  Each skips, with its reason, where there is no CUDA device;
-the file imports no JAX, so it also runs on a machine without it:
+B2), flash-attention (B3) and RG-LRU scan (B4) kernels against their
+plain versions at the full widths of the demo LM and recurrentgemma-2b,
+and the engine on the card.  Each skips, with its reason, where there is
+no CUDA device; the file imports no JAX, so it also runs on a machine
+without it:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -15,6 +17,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference, paged_decode_attention)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_reference)
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402,E501
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402,E501
 
@@ -149,3 +154,110 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
     q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_head_dim_256_mqa(cuda_device, dtype):
+    """recurrentgemma-2b's ring decode: H 10 on Hkv 1 (group 10), dh 256,
+    a 2048-slot ring, ragged kv_len including 0 and the full ring (the
+    CTA's ~87.5 KB of shared memory needs the opt-in above 48 KB)."""
+    b, h, hkv, m, dh = 6, 10, 1, 2048, 256
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(256)
+    q = torch.randn(b, h, dh, generator=g).to(cuda_device, dt)
+    kc = torch.randn(b, m, hkv, dh, generator=g).to(cuda_device, dt)
+    vc = torch.randn(b, m, hkv, dh, generator=g).to(cuda_device, dt)
+    lens = torch.tensor([0, 2048, 1, 33, 1000, 2047], dtype=torch.int32,
+                        device=cuda_device)
+    out = decode_attention(q, kc, vc, lens)
+    ref = decode_attention_reference(q, kc, vc, lens)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,dtype", [
+    (16, 256, 2560, "float32"),     # the serve prefill shape
+    (3, 100, 70, "float32"),        # ragged: no padding anywhere
+    (2, 2048, 2560, "float32"),     # the long prefill's bucket
+    (1, 512, 256, "bfloat16"),
+])
+def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, dtype):
+    """B4 against the plain version: bitwise at f32 (the same two
+    roundings per step); bf16 within tests/test_kernels.py::_tol x 5 (the
+    f32 carry is the same, the output rounds once)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(b * s + d)
+    a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g).to(
+        cuda_device, dt)
+    x = torch.randn(b, s, d, generator=g).to(cuda_device, dt)
+    before = rglru_scan_fwd.launches
+    out = rglru_scan(a, x)
+    assert rglru_scan_fwd.launches == before + 1
+    ref = rglru_scan_reference(a, x)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == x.shape
+    if dtype == "float32":
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=0.1,
+                                   rtol=0.1)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_kernel_properties_and_gradients(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(2, 300, 130, generator=g).to(cuda_device)
+    assert torch.equal(rglru_scan(torch.zeros_like(x), x), x)
+    xi = torch.randint(-8, 9, (2, 300, 130), generator=g).float().to(
+        cuda_device)
+    assert torch.equal(rglru_scan(torch.ones_like(xi), xi),
+                       rglru_scan_reference(torch.ones_like(xi), xi))
+    torch.testing.assert_close(rglru_scan(torch.ones_like(xi), xi),
+                               xi.cumsum(1), atol=0, rtol=0)
+    a = torch.empty(1, 128, 128).uniform_(0.5, 0.99, generator=g).to(
+        cuda_device).requires_grad_()
+    x = torch.randn(1, 128, 128, generator=g).to(cuda_device).requires_grad_()
+    go = torch.randn(1, 128, 128, generator=g).to(cuda_device)
+    got = torch.autograd.grad(rglru_scan(a, x), (a, x), go)
+    want = torch.autograd.grad(rglru_scan_reference(a, x), (a, x), go)
+    for u, w in zip(got, want):
+        torch.testing.assert_close(u, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rglru_engine_on_card_through_the_kernels(cuda_device):
+    """recurrentgemma reduced widths at d_model 256, 4 heads (head_dim 64,
+    a B1 instance), f32: B4 launched once per recurrent block per prefill
+    call, B1 once per attention block per sub-step; decode_block 1 == 8."""
+    cfg = registry.get_reduced_config("recurrentgemma-2b", d_model=256,
+                                      compute_dtype="float32")
+    fns = registry.model_fns(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg, cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, 6)]
+    calls = []
+    streams = []
+    for block in (1, 8):
+        eng = ServingEngine(cfg, fns, params,
+                            EngineConfig(max_batch=3, max_len=64, seed=7,
+                                         decode_block=block))
+        prefill = eng.spec.prefill
+        eng.spec.prefill = lambda *a, **k: calls.append(1) or prefill(*a,
+                                                                       **k)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=9,
+                               temperature=3.0 if uid % 2 else 0.0))
+        calls.clear()
+        before = (rglru_scan_fwd.launches, decode_attention.launches)
+        done = eng.run()
+        rec = 2 * cfg.n_groups + cfg.n_tail_rec
+        assert rglru_scan_fwd.launches - before[0] == rec * len(calls)
+        assert decode_attention.launches - before[1] == \
+            cfg.n_groups * eng.stats["decode_blocks"] * block
+        streams.append({r.uid: r.generated for r in done})
+    assert streams[0] == streams[1]
+    assert all(len(v) == 9 for v in streams[0].values())

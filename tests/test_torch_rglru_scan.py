@@ -1,0 +1,116 @@
+"""The port's RG-LRU scan (kernel B4's plain version and its autograd
+wrapper, which run for CPU tensors) against the JAX package's Pallas
+kernel in interpret mode and its oracles, at `TestRGLRUScan`'s sweep
+shapes; inputs from numpy seeds."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.rglru_scan import rglru_scan as jscan  # noqa: E402
+from repro.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan_associative, rglru_scan_reference as jref)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_reference)
+
+torch.set_num_threads(1)
+
+# tests/test_kernels.py::_tol x 5, as TestRGLRUScan holds the Pallas kernel
+TOL = {"float32": 2e-5 * 5, "bfloat16": 2e-2 * 5}
+
+
+def _inputs(b, s, d, dtype, seed, lo=0.2, hi=0.999):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(lo, hi, (b, s, d)).astype(np.float32)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    ja, jx = jnp.asarray(a, jdt), jnp.asarray(x, jdt)
+    tdt = getattr(torch, dtype)
+    # the same (rounded) values on both sides
+    return ja, jx, (torch.from_numpy(np.array(ja, np.float32)).to(tdt),
+                    torch.from_numpy(np.array(jx, np.float32)).to(tdt))
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 256, 128), (1, 512, 256),
+                                   (3, 128, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sweep_matches_pallas_kernel_and_oracle(b, s, d, dtype):
+    ja, jx, (a, x) = _inputs(b, s, d, dtype, seed=b * s + d)
+    got = rglru_scan(a, x)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    tol = TOL[dtype]
+    want = np.asarray(jscan(ja, jx, interpret=True), np.float32)
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+    # the JAX sequential oracle computes the same two roundings per step
+    np.testing.assert_allclose(_np(got), np.asarray(jref(ja, jx), np.float32),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got, rglru_scan_reference(a, x))
+
+
+def test_unpadded_shape_without_padding():
+    """(2, 100, 70): the JAX wrapper pads to 256 x 128 blocks; the port
+    takes the shape as it is."""
+    ja, jx, (a, x) = _inputs(2, 100, 70, "float32", seed=7, lo=0.5, hi=0.99)
+    got = rglru_scan(a, x)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jscan(
+        ja, jx, interpret=True)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        rglru_scan_associative(ja, jx)), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_zero_a_is_identity_and_one_a_is_cumsum(seed):
+    """a == 0 -> h == x; a == 1 -> h == cumsum(x) (integer-valued x: every
+    partial sum is exact in f32, so the cumsum is bitwise)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, 128, 128)).astype(
+        np.float32))
+    assert torch.equal(rglru_scan(torch.zeros_like(x), x), x)
+    xi = torch.from_numpy(rng.integers(-8, 9, (1, 128, 128)).astype(
+        np.float32))
+    assert torch.equal(rglru_scan(torch.ones_like(xi), xi),
+                       torch.cumsum(xi, dim=1))
+    h1 = np.asarray(jscan(jnp.ones((1, 128, 128)), jnp.asarray(x.numpy()),
+                          interpret=True))
+    np.testing.assert_allclose(rglru_scan(torch.ones_like(x), x).numpy(), h1,
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_gradients_match_jax_grad():
+    """The backward is the VJP of the plain recurrence: gradients of a
+    and x equal jax.grad through the Pallas wrapper (whose custom_vjp
+    differentiates the associative oracle) within 1e-5."""
+    ja, jx, (a, x) = _inputs(1, 128, 128, "float32", seed=9, lo=0.5,
+                             hi=0.99)
+    rng = np.random.default_rng(10)
+    g = rng.standard_normal((1, 128, 128)).astype(np.float32)
+
+    def jloss(a_, x_):
+        return jnp.sum(jscan(a_, x_, interpret=True) * g)
+    jga, jgx = jax.grad(jloss, argnums=(0, 1))(ja, jx)
+    a.requires_grad_()
+    x.requires_grad_()
+    ga, gx = torch.autograd.grad((rglru_scan(a, x) * torch.from_numpy(g))
+                                 .sum(), (a, x))
+    np.testing.assert_allclose(ga.numpy(), np.asarray(jga), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_wrapper_refuses_what_the_kernel_cannot_take():
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    a = torch.ones(1, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_fwd(a, a)
+    with pytest.raises(TypeError, match="float32 or"):
+        rglru_scan_fwd(a.half(), a.half())
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan_fwd(a, torch.ones(1, 4, 9))
