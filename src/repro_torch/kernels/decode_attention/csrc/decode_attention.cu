@@ -1,5 +1,6 @@
 // Single-query (decode) GQA attention over a dense or a paged KV cache, for
-// Hopper (sm_90a).  Plain C interface, bound from Python with ctypes.
+// Hopper (sm_90a): split-K ("flash-decoding").  Plain C interface, bound
+// from Python with ctypes.
 //
 // Replaces the Pallas TPU kernels
 //   B1  src/repro/kernels/decode_attention/kernel.py::_decode_kernel
@@ -7,224 +8,554 @@
 // with one template: PAGED only changes where logical position t lives,
 //   dense  row = b * M + t
 //   paged  row = ptab[b, t / ps] * ps + t % ps
-// in a (rows, Hkv, dh) cache.  Every sum runs over logical positions in
-// fixed tiles of TILE and in a fixed order, with explicit fmaf, so the
-// result depends only on the values at positions t < kv_len[b]: paged ==
-// dense bitwise, and positions >= kv_len (the trash page included) are
-// never read at all.
-//
-// Design.  One CTA of 128 threads per (kv head, batch row) serves the whole
-// GQA group (H / Hkv query heads), so each K/V row is read from HBM once.
-// The CTA walks t < kv_len[b] in tiles of 32 positions: it stages the K and
-// V rows of the tile in shared memory as f32 (16-byte loads), computes the
-// G x 32 scores, takes the online-softmax step with one warp per query head
-// (butterfly shuffles, identical on every lane), and folds P.V into an f32
-// accumulator in shared memory.  Rows with kv_len == 0 write exact zeros.
-// Head dims 64, 128 and 256 are instances; at dh 256 and a GQA group of 10
-// (recurrentgemma-2b's MQA) the CTA's shared memory is ~87.5 KB, above the
-// 48 KB default, so `launch_typed` opts in to it.
+// in a (rows, Hkv, dh) cache.  The TPU kernels walk a row's positions on a
+// sequential grid axis and carry m, l and acc in VMEM scratch; CUDA blocks
+// run in no order, so here the positions are split across CTAs and the
+// partial softmaxes are merged by a second kernel.
 //
 // Bound.  The work is O(1) FLOP per byte: it moves
 //   sum_b 2 * kv_len[b] * Hkv * dh * itemsize  bytes of K/V
 // plus q and out, so it is HBM-bound (3.35 TB/s on an H100 SXM) and, at the
-// serving widths, launch-bound.  This first version runs one CTA per
-// (row, kv head) with no split over M and no cp.async/TMA pipelining; both
-// are later work.
+// serving widths (a few MB per call), bound by the launch and the latency
+// of one round of loads.  What the design does about it:
+//
+// Split.  Kernel 1 runs one CTA of four warps per (split s, kv head, row b):
+// split s covers logical positions [s * C, (s + 1) * C) that are < kv_len[b],
+// with C a compile-time constant of the source (never derived from the
+// cache's capacity, the batch or the page size).  The grid has
+// n_split = ceil(cap / C) splits, from shapes only, so the host never reads
+// kv_len; a CTA whose split starts at or past kv_len exits at once.  One
+// MQA row of 2048 positions thus spreads over 32 CTAs instead of one.
+// C = 64 at every head dim (C = 128 at dh 64 measured slower; see
+// PERF.md); decode_attention_workspace gives the wrapper the workspace
+// size, so the partition rule lives here alone.
+//
+// Staging.  Every thread issues its 16-byte cp.async copies (cg: L2 only)
+// of the split's K rows (and q), commits, then those of its V rows, and
+// commits again, before any compute; the scores wait only for K, so the V
+// copies overlap them.  K/V stay in the input type in shared memory, rows
+// padded by 16 bytes (conflict-free fragment loads); rows past kv_len are
+// zero-filled, never loaded, so positions >= kv_len (the trash page) are
+// not read at all.  At C 64 and dh 256 in bf16 the CTA holds 66 KB of K/V,
+// so two CTAs share an SM.
+//
+// Products.  For bf16 the scores and P.V run on tensor cores with warp-level
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate): the GQA group is padded to
+// the 16 rows of the A operand (10 for recurrentgemma-2b, 3 for the demo
+// LM; larger groups take several 16-row blocks).  wgmma would want 64 rows,
+// 4-20x more padding, for a product this small.  Warp w computes the scores
+// of positions [w C/4, (w+1) C/4) of the split, and the softmax runs in
+// registers: row maxima and sums reduce by shuffles within the warp and
+// across the four warps through 512 bytes of shared memory.  P is rounded
+// to bf16 for the P.V product, as FlashAttention-2 does, and l sums the
+// rounded weights.  Warp w then owns dims [w dh/4, (w+1) dh/4) of the
+// accumulator, in registers, with V fragments from ldmatrix.trans.  The f32
+// instances (tests and chip_smoke.py only) use the same split, staging and
+// merge with fmaf on the CUDA cores.
+//
+// Merge.  Each split writes its unnormalised (m, l, acc) in f32 to a
+// workspace the wrapper allocates.  Kernel 2, one CTA per (query head, row)
+// and one thread per dim, folds splits 0 .. ceil(kv_len / C) - 1 in that
+// order (max first, then the weighted sums with fmaf), skipping empty
+// splits; rows with kv_len == 0 write exact zeros.  It is launched as a
+// programmatic dependent of kernel 1 (every split CTA signals at its
+// start), so its launch overlaps the splits and it waits on
+// griddepcontrol.wait before it reads the workspace; the first 16 splits'
+// values load while (m, l) are staged.  No atomics: the result is the same
+// from call to call, and since every sum runs over logical positions in a
+// fixed order, paged == dense bitwise.  (Merging in the last split CTA of
+// each (row, kv head) instead saves the second kernel but leaves one SM to
+// fold all of a long row's splits: slower on full rings.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int TILE = 32;      // positions per tile == warp size
+constexpr int C = 64;         // positions per split
 constexpr int THREADS = 128;  // four warps
-constexpr float NEG_INF = -1e30f;
+constexpr int WARPS = THREADS / 32;
+constexpr size_t SMEM_MAX = 232448;  // 227 KB a block may opt in to
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using bf16 = __nv_bfloat16;
+
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, int DH, bool PAGED>
-__global__ void __launch_bounds__(THREADS) decode_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int32_t* __restrict__ kv_len,
-    const int32_t* __restrict__ ptab, T* __restrict__ out, int hkv,
-    int group, int cap, int page_size, int max_pages, float scale) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int CPR = DH / VEC;        // 16-byte chunks per cache row
-  constexpr int KS = DH + 1;           // padded K row: no bank conflicts
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int h = hkv * group;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  extern __shared__ float smem[];
-  float* k_s = smem;                   // TILE x KS
-  float* v_s = k_s + TILE * KS;        // TILE x DH
-  float* q_s = v_s + TILE * DH;        // group x DH (pre-scaled)
-  float* acc_s = q_s + group * DH;     // group x DH
-  float* p_s = acc_s + group * DH;     // group x TILE
-  float* m_s = p_s + group * TILE;     // group
-  float* l_s = m_s + group;            // group
-  float* a_s = l_s + group;            // group
+// D = A (16x16, row) * B (16x8, col) + D, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  int len = kv_len[b];
-  len = len < 0 ? 0 : (len > cap ? cap : len);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
 
-  const size_t qoff = ((size_t)b * h + (size_t)hk * group) * DH;
-  for (int i = tid; i < group * DH; i += THREADS) {
-    q_s[i] = to_f32(q[qoff + i]) * scale;
-    acc_s[i] = 0.f;
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared-memory plan of one split CTA, in elements of T unless said.
+template <typename T, int DH> struct Plan {
+  static constexpr bool TC = std::is_same<T, bf16>::value;
+  static constexpr int PAD = 16 / sizeof(T);
+  static constexpr int LD = DH + PAD;  // K, V, q row stride
+  static constexpr int PLD = C + 8;    // bf16 P row stride
+  static size_t bytes(int group) {
+    const size_t qrows = TC ? (size_t)(group + 15) / 16 * 16 : group;
+    size_t n = (2 * (size_t)C + qrows) * LD * sizeof(T);
+    if (TC)
+      n += 16 * PLD * sizeof(bf16) + 2 * WARPS * 16 * sizeof(float);
+    else
+      n += (size_t)group * C * sizeof(float);
+    return n;
   }
-  for (int g = tid; g < group; g += THREADS) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
+};
+
+struct SplitArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* kv_len;
+  const int32_t* ptab;
+  float* acc;  // workspace: acc (B, Hkv, n_split, G, dh), f32
+  float* ml;   // workspace: (m, l) (B, Hkv, n_split, G, 2), f32
+  int batch, hkv, group, cap, page_size, max_pages, n_split;
+  float scale;
+};
+
+// bf16: scores and P.V on tensor cores; the 16-row block rb of the group.
+template <int DH>
+__device__ void split_tc(const SplitArgs& a, const bf16* k_s, const bf16* v_s,
+                         const bf16* q_s, bf16* p_s, float* red, int n,
+                         size_t part) {
+  using P = Plan<bf16, DH>;
+  constexpr int LD = P::LD, PLD = P::PLD;
+  constexpr int SPW = C / WARPS;   // score positions per warp
+  constexpr int NTS = SPW / 8;     // score n-tiles per warp
+  constexpr int DPW = DH / WARPS;  // accumulator dims per warp
+  constexpr int NTO = DPW / 8;     // accumulator n-tiles per warp
+  static_assert(SPW % 8 == 0 && NTO % 2 == 0, "tile shape");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int group = a.group;
+  float* red_m = red;
+  float* red_l = red + WARPS * 16;
+
+  for (int rb = 0; rb * 16 < group; ++rb) {
+    const bf16* qb = q_s + rb * 16 * LD;
+    // scores of this warp's positions: 16 rows x SPW, f32
+    float s[NTS][4];
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      uint32_t af[4];
+      af[0] = lds32(qb + gid * LD + kk + tig * 2);
+      af[1] = lds32(qb + (gid + 8) * LD + kk + tig * 2);
+      af[2] = lds32(qb + gid * LD + kk + 8 + tig * 2);
+      af[3] = lds32(qb + (gid + 8) * LD + kk + 8 + tig * 2);
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt) {
+        const bf16* kr = k_s + (warp * SPW + nt * 8 + gid) * LD + kk;
+        mma_bf16(s[nt], af, lds32(kr + tig * 2), lds32(kr + 8 + tig * 2));
+      }
+    }
+    // softmax over the split: rows gid (regs 0, 1) and gid + 8 (2, 3)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = warp * SPW + nt * 8 + tig * 2 + e < n;
+        s[nt][e] = ok ? s[nt][e] * a.scale : -INFINITY;
+        s[nt][2 + e] = ok ? s[nt][2 + e] * a.scale : -INFINITY;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    if (tig == 0) {
+      red_m[warp * 16 + gid] = mx0;
+      red_m[warp * 16 + gid + 8] = mx1;
+    }
+    __syncthreads();
+    float m0 = red_m[gid], m1 = red_m[gid + 8];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      m0 = fmaxf(m0, red_m[w * 16 + gid]);
+      m1 = fmaxf(m1, red_m[w * 16 + gid + 8]);
+    }
+    // position 0 of the split is < kv_len, so m0 and m1 are finite
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt) {
+      const int j = warp * SPW + nt * 8 + tig * 2;
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = j + e < n;
+        p[e] = ok ? expf(s[nt][e] - m0) : 0.f;
+        p[2 + e] = ok ? expf(s[nt][2 + e] - m1) : 0.f;
+      }
+      const uint32_t w0 = pack_bf16(p[0], p[1]);
+      const uint32_t w1 = pack_bf16(p[2], p[3]);
+      *reinterpret_cast<uint32_t*>(p_s + gid * PLD + j) = w0;
+      *reinterpret_cast<uint32_t*>(p_s + (gid + 8) * PLD + j) = w1;
+      const __nv_bfloat162 r0 = *reinterpret_cast<const __nv_bfloat162*>(&w0);
+      const __nv_bfloat162 r1 = *reinterpret_cast<const __nv_bfloat162*>(&w1);
+      l0 += __low2float(r0) + __high2float(r0);
+      l1 += __low2float(r1) + __high2float(r1);
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    if (tig == 0) {
+      red_l[warp * 16 + gid] = l0;
+      red_l[warp * 16 + gid + 8] = l1;
+    }
+    cp_async_wait<0>();  // V has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's; P and red_l complete
+    // acc (16 x DPW of this warp) = P (16 x C) . V (C x DPW)
+    float acc[NTO][4];
+#pragma unroll
+    for (int nt = 0; nt < NTO; ++nt)
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C; kk += 16) {
+      uint32_t af[4];
+      af[0] = lds32(p_s + gid * PLD + kk + tig * 2);
+      af[1] = lds32(p_s + (gid + 8) * PLD + kk + tig * 2);
+      af[2] = lds32(p_s + gid * PLD + kk + 8 + tig * 2);
+      af[3] = lds32(p_s + (gid + 8) * PLD + kk + 8 + tig * 2);
+#pragma unroll
+      for (int np = 0; np < NTO / 2; ++np) {
+        // four 8x8 matrices: (k lo, n lo), (k hi, n lo), (k lo, n hi),
+        // (k hi, n hi) -> B fragments of n-tiles 2 np and 2 np + 1
+        const int row = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = warp * DPW + np * 16 + (lane >> 4) * 8;
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, v_s + row * LD + col);
+        mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+        mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+    // write this split's partials for the real rows of the block
+    const int g0 = rb * 16 + gid, g1 = g0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < NTO; ++nt) {
+      const int d = warp * DPW + nt * 8 + tig * 2;
+      if (g0 < group)
+        *reinterpret_cast<float2*>(a.acc + (part * group + g0) * DH + d) =
+            make_float2(acc[nt][0], acc[nt][1]);
+      if (g1 < group)
+        *reinterpret_cast<float2*>(a.acc + (part * group + g1) * DH + d) =
+            make_float2(acc[nt][2], acc[nt][3]);
+    }
+    if (warp == 0 && tig == 0) {
+      float L0 = red_l[gid], L1 = red_l[gid + 8];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) {
+        L0 += red_l[w * 16 + gid];
+        L1 += red_l[w * 16 + gid + 8];
+      }
+      if (g0 < group)
+        *reinterpret_cast<float2*>(a.ml + (part * group + g0) * 2) =
+            make_float2(m0, L0);
+      if (g1 < group)
+        *reinterpret_cast<float2*>(a.ml + (part * group + g1) * 2) =
+            make_float2(m1, L1);
+    }
+    __syncthreads();  // p_s and red are reused by the next row block
+  }
+}
+
+// f32: the same split on the CUDA cores with fmaf.
+template <int DH>
+__device__ void split_fma(const SplitArgs& a, const float* k_s,
+                          const float* v_s, const float* q_s, float* p_s,
+                          int n, size_t part) {
+  constexpr int LD = Plan<float, DH>::LD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = a.group;
+
+  for (int i = tid; i < group * C; i += THREADS) {
+    const int g = i / C, j = i - g * C;
+    float s = -INFINITY;
+    if (j < n) {
+      const float4* qg = reinterpret_cast<const float4*>(q_s + g * LD);
+      const float4* kj = reinterpret_cast<const float4*>(k_s + j * LD);
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < DH / 4; ++d) {
+        const float4 x = qg[d], y = kj[d];
+        dot = fmaf(x.x, y.x, dot);
+        dot = fmaf(x.y, y.y, dot);
+        dot = fmaf(x.z, y.z, dot);
+        dot = fmaf(x.w, y.w, dot);
+      }
+      s = dot * a.scale;
+    }
+    p_s[i] = s;
   }
   __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    const int n = min(TILE, len - t0);
-    // stage the tile's K and V rows (positions t0 .. t0 + n - 1 only)
-    for (int c = tid; c < n * CPR; c += THREADS) {
-      const int j = c / CPR;
-      const int part = c - j * CPR;
-      const int t = t0 + j;
-      size_t row;
-      if (PAGED) {
-        const int pg = ptab[(size_t)b * max_pages + t / page_size];
-        row = (size_t)pg * page_size + (t % page_size);
-      } else {
-        row = (size_t)b * cap + t;
-      }
-      const size_t off = (row * hkv + hk) * DH + (size_t)part * VEC;
-      const uint4 kr = *reinterpret_cast<const uint4*>(k + off);
-      const uint4 vr = *reinterpret_cast<const uint4*>(v + off);
-      const T* ke = reinterpret_cast<const T*>(&kr);
-      const T* ve = reinterpret_cast<const T*>(&vr);
+  // softmax: one warp per query head, lane l holds positions l + 32 r
+  for (int g = warp; g < group; g += WARPS) {
+    float* pg = p_s + g * C;
+    float mx = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        k_s[j * KS + part * VEC + e] = to_f32(ke[e]);
-        v_s[j * DH + part * VEC + e] = to_f32(ve[e]);
-      }
-    }
-    __syncthreads();
-
-    // scores s[g][j] = (q_g * scale) . k_j
-    for (int i = tid; i < group * TILE; i += THREADS) {
-      const int g = i / TILE;
-      const int j = i - g * TILE;
-      float s = NEG_INF;
-      if (j < n) {
-        s = 0.f;
-        const float* qg = q_s + g * DH;
-        const float* kj = k_s + j * KS;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) s = fmaf(qg[d], kj[d], s);
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-
-    // online-softmax step: one warp per query head, lane j = position j
-    for (int g = warp; g < group; g += THREADS / 32) {
-      const float s = p_s[g * TILE + lane];
-      float mx = s;
+    for (int r = 0; r < C / 32; ++r) mx = fmaxf(mx, pg[lane + 32 * r]);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      float sum = p;
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float l = 0.f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[g * TILE + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[g] = fmaf(l_s[g], alpha, sum);
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-      }
+    for (int r = 0; r < C / 32; ++r) {
+      const int j = lane + 32 * r;
+      const float p = j < n ? expf(pg[j] - mx) : 0.f;
+      pg[j] = p;
+      l += p;
     }
-    __syncthreads();
-
-    // acc[g][d] = acc[g][d] * alpha[g] + sum_j p[g][j] * v[j][d]
-    for (int i = tid; i < group * DH; i += THREADS) {
-      const int g = i / DH;
-      const int d = i - g * DH;
-      const float* pg = p_s + g * TILE;
-      float pv = 0.f;
-      for (int j = 0; j < n; ++j) pv = fmaf(pg[j], v_s[j * DH + d], pv);
-      acc_s[i] = fmaf(acc_s[i], a_s[g], pv);
-    }
-    __syncthreads();
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0)
+      *reinterpret_cast<float2*>(a.ml + (part * group + g) * 2) =
+          make_float2(mx, l);
   }
-
+  cp_async_wait<0>();
+  __syncthreads();
   for (int i = tid; i < group * DH; i += THREADS) {
-    const int g = i / DH;
-    const float o = len > 0 ? acc_s[i] / fmaxf(l_s[g], 1e-30f) : 0.f;
-    out[qoff + i] = from_f32<T>(o);
+    const int g = i / DH, d = i - g * DH;
+    const float* pg = p_s + g * C;
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j) acc = fmaf(pg[j], v_s[j * LD + d], acc);
+    a.acc[(part * group + g) * DH + d] = acc;
   }
-}
-
-size_t smem_bytes(int dh, int group) {
-  return sizeof(float) *
-         ((size_t)TILE * (dh + 1) + (size_t)TILE * dh + 2 * (size_t)group * dh +
-          (size_t)group * TILE + 3 * (size_t)group);
 }
 
 template <typename T, int DH, bool PAGED>
-int launch_typed(const void* q, const void* k, const void* v,
-                 const void* kv_len, const void* ptab, void* out, int batch,
-                 int hkv, int group, int cap, int page_size, int max_pages,
-                 float scale, cudaStream_t stream) {
-  auto kern = decode_attention_kernel<T, DH, PAGED>;
-  const size_t smem = smem_bytes(DH, group);
+__global__ void __launch_bounds__(THREADS)
+    decode_split_kernel(const SplitArgs a) {
+  using P = Plan<T, DH>;
+  constexpr int LD = P::LD;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int CPR = DH / VEC;        // copies per row
+  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  int len = a.kv_len[b];
+  len = len < 0 ? 0 : (len > a.cap ? a.cap : len);
+  // the merge kernel may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int t0 = s * C;
+  if (t0 >= len) return;  // an empty split: nothing written, never merged
+  const int n = min(C, len - t0);
+  const int group = a.group;
+  const int qrows = P::TC ? (group + 15) / 16 * 16 : group;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + C * LD;
+  T* q_s = v_s + C * LD;
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* q = static_cast<const T*>(a.q);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  // group 0: this split's K rows and the group's q rows; group 1: V rows
+  const size_t qoff = ((size_t)b * a.hkv * group + (size_t)hk * group) * DH;
+  for (int c = tid; c < qrows * CPR; c += THREADS) {
+    const int g = c / CPR, part = c - g * CPR;
+    T* dst = q_s + g * LD + part * VEC;
+    if (g < group)
+      cp_async16(dst, q + qoff + (size_t)g * DH + part * VEC);
+    else
+      *reinterpret_cast<uint4*>(dst) = zero;
+  }
+  for (int pass = 0; pass < 2; ++pass) {
+    const T* src = pass ? v : k;
+    T* dst_s = pass ? v_s : k_s;
+    for (int c = tid; c < C * CPR; c += THREADS) {
+      const int j = c / CPR, part = c - j * CPR;
+      T* dst = dst_s + j * LD + part * VEC;
+      if (j < n) {
+        const int t = t0 + j;
+        size_t row;
+        if (PAGED) {
+          const int pg = a.ptab[(size_t)b * a.max_pages + t / a.page_size];
+          row = (size_t)pg * a.page_size + (t % a.page_size);
+        } else {
+          row = (size_t)b * a.cap + t;
+        }
+        cp_async16(dst, src + (row * a.hkv + hk) * DH + (size_t)part * VEC);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = zero;
+      }
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<1>();  // K and q have landed (this thread's copies)
+  __syncthreads();
+
+  const size_t part = ((size_t)b * a.hkv + hk) * a.n_split + s;
+  if constexpr (P::TC) {
+    bf16* p_s = q_s + qrows * LD;
+    float* red = reinterpret_cast<float*>(p_s + 16 * P::PLD);
+    split_tc<DH>(a, k_s, v_s, q_s, p_s, red, n, part);
+  } else {
+    float* p_s = q_s + group * LD;
+    split_fma<DH>(a, k_s, v_s, q_s, p_s, n, part);
+  }
+}
+
+// One CTA per (query head, row), one thread per dim: fold the row's
+// non-empty splits in order.  Dynamic shared memory: (m, l) per split,
+// then the weights.
+template <typename T, int DH>
+__global__ void __launch_bounds__(DH)
+    decode_merge_kernel(const float* __restrict__ acc,
+                        const float* __restrict__ ml,
+                        const int32_t* __restrict__ kv_len,
+                        T* __restrict__ out, int hkv, int group, int cap,
+                        int n_split) {
+  extern __shared__ float2 ml_s[];
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int hk = h / group, g = h - hk * group;
+  int len = kv_len[b];
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int used = (len + C - 1) / C;
+  const size_t first = (((size_t)b * hkv + hk) * n_split) * group + g;
+  float* w_s = reinterpret_cast<float*>(ml_s + used);
+  const float* a = acc + first * DH + d;
+  const size_t stride = (size_t)group * DH;  // between splits
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the splits' writes
+  // values load in batches of NB splits, the first while (m, l) are
+  // staged; each batch is folded in split order
+  constexpr int NB = 16;
+  float v[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) v[j] = j < used ? a[j * stride] : 0.f;
+  for (int s = d; s < used; s += DH)
+    ml_s[s] = reinterpret_cast<const float2*>(ml)[first + (size_t)s * group];
+  __syncthreads();
+  float mx = -INFINITY;
+#pragma unroll 8
+  for (int s = 0; s < used; ++s) mx = fmaxf(mx, ml_s[s].x);
+  for (int s = d; s < used; s += DH) w_s[s] = expf(ml_s[s].x - mx);
+  __syncthreads();
+  float l = 0.f, x = 0.f;
+  for (int s0 = 0; s0 < used; s0 += NB) {
+    if (s0 > 0) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        v[j] = s0 + j < used ? a[(size_t)(s0 + j) * stride] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (s0 + j < used) {
+        l = fmaf(w_s[s0 + j], ml_s[s0 + j].y, l);
+        x = fmaf(w_s[s0 + j], v[j], x);
+      }
+    }
+  }
+  out[((size_t)b * hkv * group + h) * DH + d] =
+      from_f32<T>(len > 0 ? x / l : 0.f);
+}
+
+template <typename T, int DH, bool PAGED>
+int launch_typed(const SplitArgs& a, void* out, cudaStream_t stream) {
+  auto kern = decode_split_kernel<T, DH, PAGED>;
+  const size_t smem = Plan<T, DH>::bytes(a.group);
+  const size_t merge_smem = 3 * sizeof(float) * (size_t)a.n_split;
+  if (smem > SMEM_MAX || merge_smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid(hkv, batch);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(kv_len),
-      static_cast<const int32_t*>(ptab), static_cast<T*>(out), hkv, group,
-      cap, page_size, max_pages, scale);
-  return (int)cudaGetLastError();
+  if (a.n_split > 0) {
+    kern<<<dim3(a.n_split, a.hkv, a.batch), THREADS, smem, stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.hkv * a.group, a.batch);
+  cfg.blockDim = dim3(DH);
+  cfg.dynamicSmemBytes = merge_smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, decode_merge_kernel<T, DH>,
+                                 (const float*)a.acc, (const float*)a.ml,
+                                 a.kv_len, static_cast<T*>(out), a.hkv,
+                                 a.group, a.cap, a.n_split);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 template <bool PAGED>
-int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
-             const void* ptab, void* out, int batch, int hkv, int group,
-             int cap, int page_size, int max_pages, int dh, int dtype,
-             float scale, void* stream) {
+int dispatch(const SplitArgs& a, void* out, int dh, int dtype,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DA_CASE(T, D)                                                       \
-  return launch_typed<T, D, PAGED>(q, k, v, kv_len, ptab, out, batch, hkv, \
-                                   group, cap, page_size, max_pages, scale, \
-                                   s)
-  if (dtype == 0 && dh == 64) DA_CASE(float, 64);
-  if (dtype == 0 && dh == 128) DA_CASE(float, 128);
-  if (dtype == 1 && dh == 64) DA_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && dh == 128) DA_CASE(__nv_bfloat16, 128);
-  if (dtype == 0 && dh == 256) DA_CASE(float, 256);
-  if (dtype == 1 && dh == 256) DA_CASE(__nv_bfloat16, 256);
+#define DA_CASE(T, D) \
+  if (dh == D) return launch_typed<T, D, PAGED>(a, out, s)
+  if (dtype == 0) {
+    DA_CASE(float, 64);
+    DA_CASE(float, 128);
+    DA_CASE(float, 256);
+  } else if (dtype == 1) {
+    DA_CASE(bf16, 64);
+    DA_CASE(bf16, 128);
+    DA_CASE(bf16, 256);
+  }
 #undef DA_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -233,26 +564,42 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
 
 extern "C" {
 
-// q (B, H, dh); k/v (B, M, Hkv, dh); kv_len (B,) int32; out (B, H, dh).
+// Elements of the f32 workspace for a cache of `cap` logical positions:
+// (m, l, acc) per (row, query head, split).
+long long decode_attention_workspace(int batch, int heads, int cap, int dh) {
+  return (long long)batch * heads * ((cap + C - 1) / C) * (dh + 2);
+}
+
+// q (B, H, dh); k/v (B, M, Hkv, dh); kv_len (B,) int32; out (B, H, dh);
+// ws f32 of decode_attention_workspace(B, H, M, dh) elements.
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* kv_len, void* out, int batch,
-                            int hkv, int group, int m, int dh, int dtype,
-                            float scale, void* stream) {
-  return dispatch<false>(q, k, v, kv_len, nullptr, out, batch, hkv, group,
-                         m, 1, 0, dh, dtype, scale, stream);
+                            const void* kv_len, void* ws, void* out,
+                            int batch, int hkv, int group, int m, int dh,
+                            int dtype, float scale, void* stream) {
+  const int n_split = (m + C - 1) / C;
+  float* acc = static_cast<float*>(ws);
+  SplitArgs a{q, k, v, static_cast<const int32_t*>(kv_len), nullptr, acc,
+              acc + (size_t)batch * hkv * group * n_split * dh, batch, hkv,
+              group, m, 1, 0, n_split, scale};
+  return dispatch<false>(a, out, dh, dtype, stream);
 }
 
 // q (B, H, dh); k/v pools (P+1, ps, Hkv, dh); ptab (B, max_pages) int32;
-// kv_len (B,) int32; out (B, H, dh).
+// kv_len (B,) int32; out (B, H, dh); ws as above with M = ps * max_pages.
 int paged_decode_attention_launch(const void* q, const void* k,
                                   const void* v, const void* kv_len,
-                                  const void* ptab, void* out, int batch,
-                                  int hkv, int group, int page_size,
-                                  int max_pages, int dh, int dtype,
-                                  float scale, void* stream) {
-  return dispatch<true>(q, k, v, kv_len, ptab, out, batch, hkv, group,
-                        page_size * max_pages, page_size, max_pages, dh,
-                        dtype, scale, stream);
+                                  const void* ptab, void* ws, void* out,
+                                  int batch, int hkv, int group,
+                                  int page_size, int max_pages, int dh,
+                                  int dtype, float scale, void* stream) {
+  const int cap = page_size * max_pages;
+  const int n_split = (cap + C - 1) / C;
+  float* acc = static_cast<float*>(ws);
+  SplitArgs a{q, k, v, static_cast<const int32_t*>(kv_len),
+              static_cast<const int32_t*>(ptab), acc,
+              acc + (size_t)batch * hkv * group * n_split * dh, batch, hkv,
+              group, cap, page_size, max_pages, n_split, scale};
+  return dispatch<true>(a, out, dh, dtype, stream);
 }
 
 }  // extern "C"

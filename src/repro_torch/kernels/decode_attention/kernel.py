@@ -5,6 +5,13 @@ The source has a plain C interface; `kernels/_build.py` compiles it with
 `nvcc` for `sm_90a` at first use and loads it with `ctypes`.  Nothing here
 runs at import, so the CPU tests import this module freely.  A launch that
 CUDA refuses raises with its error code.
+
+One call launches two device kernels: the split kernel, one CTA per
+(split of a fixed number of positions, kv head, row), and the merge, one
+CTA per (query head, row).  The wrapper allocates their f32 workspace
+with `torch.empty`, at the size the source's `decode_attention_workspace`
+gives; the number of splits comes from shapes only, never from kv_len, so
+nothing is read back from the card.
 """
 from __future__ import annotations
 
@@ -21,12 +28,14 @@ _HEAD_DIMS = (64, 128, 256)
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            ctypes.c_float, p]
+    lib.decode_attention_workspace.argtypes = [i, i, i, i]
+    lib.decode_attention_workspace.restype = ctypes.c_longlong
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                            i, i, ctypes.c_float, p]
     lib.decode_attention_launch.restype = i
-    lib.paged_decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                  i, i, i, i, ctypes.c_float,
-                                                  p]
+    lib.paged_decode_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                  i, i, i, i, i,
+                                                  ctypes.c_float, p]
     lib.paged_decode_attention_launch.restype = i
 
 
@@ -61,6 +70,14 @@ def _check(q, k, v, kv_len, extra=()):
         raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
 
 
+def _workspace(lib, q, cap):
+    """The f32 workspace of the per-split (m, l, acc) for a cache of `cap`
+    logical positions."""
+    b, h, dh = q.shape
+    return torch.empty(lib.decode_attention_workspace(b, h, cap, dh),
+                       dtype=torch.float32, device=q.device)
+
+
 def decode_attention_fwd(q, k_cache, v_cache, kv_len):
     """B1.  q (B, H, dh); k/v_cache (B, M, Hkv, dh); kv_len (B,) int32 on
     the card.  Returns (B, H, dh) in q's dtype."""
@@ -75,11 +92,12 @@ def decode_attention_fwd(q, k_cache, v_cache, kv_len):
                          f"{tuple(kv_len.shape)}")
     _check(q, k_cache, v_cache, kv_len)
     lib = LIBRARY.load()
+    ws = _workspace(lib, q, m)
     out = torch.empty_like(q)
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, hkv, h // hkv, m, dh,
-        _DTYPES[q.dtype], dh ** -0.5,
+        kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(), b, hkv, h // hkv,
+        m, dh, _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "decode_attention")
     return out
@@ -104,11 +122,13 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):
         raise TypeError(f"page_table must be int32, got {page_table.dtype}")
     _check(q, k_pages, v_pages, kv_len, extra=(("page_table", page_table),))
     lib = LIBRARY.load()
+    ws = _workspace(lib, q, ps * page_table.shape[1])
     out = torch.empty_like(q)
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        kv_len.data_ptr(), page_table.data_ptr(), out.data_ptr(), b, hkv,
-        h // hkv, ps, page_table.shape[1], dh, _DTYPES[q.dtype], dh ** -0.5,
+        kv_len.data_ptr(), page_table.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), b, hkv, h // hkv, ps, page_table.shape[1], dh,
+        _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "paged_decode_attention")
     return out

@@ -4,8 +4,8 @@ A CPU tensor runs the plain version (`ref.decode_attention_reference`); a
 CUDA tensor launches the CUDA kernel or raises.  Unlike the reference,
 which picks the Pallas kernel through `attn_impl` and the
 `REPRO_DECODE_ATTN` environment variable, the port has no switch: the
-tensor's device decides.  `decode_attention.launches` counts kernel
-launches.
+tensor's device decides.  `decode_attention.launches` counts the calls
+that launch the kernels (each launches a split and a merge kernel).
 """
 from __future__ import annotations
 

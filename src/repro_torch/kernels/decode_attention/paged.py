@@ -5,7 +5,8 @@ whose last page P is the trash page.
 A CPU tensor runs the plain version (gather pages, then the dense oracle);
 a CUDA tensor launches the CUDA kernel or raises.  The kernel reduces over
 logical positions in the same order as B1, so paged == dense bitwise on
-the card.  `paged_decode_attention.launches` counts kernel launches.
+the card.  `paged_decode_attention.launches` counts the calls that
+launch the kernels (a split and a merge kernel each).
 """
 from __future__ import annotations
 

@@ -5,6 +5,10 @@ kernels against, and what the wrappers run for CPU tensors.
 Same semantics as the reference oracles: f32 math, scale dh**-0.5, scores
 past kv_len set to -1e30 before the softmax, rows with kv_len == 0 return
 exact zeros.
+
+`split_decode_attention_reference` and its paged form spell out the CUDA
+kernel's split-K algorithm in plain f32 PyTorch, for the tests: nothing
+on the serving path calls them.
 """
 from __future__ import annotations
 
@@ -47,3 +51,68 @@ def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
     return decode_attention_reference(
         q, gather_pages(k_pages, page_table),
         gather_pages(v_pages, page_table), kv_len)
+
+
+def _split_merge(q, k, v, kv_len, chunk):
+    """q (B, H, dh); k/v (B, n_split * chunk, Hkv, dh) in logical position
+    order; kv_len (B,).  Positions >= kv_len are zeroed before any
+    arithmetic, so what they held (NaN included) never matters."""
+    b, h, dh = q.shape
+    hkv = k.shape[2]
+    n = k.shape[1] // chunk
+    lens = kv_len.reshape(-1).to(torch.int64)
+    valid = torch.arange(n * chunk, device=q.device)[None] < lens[:, None]
+    keep = valid[:, :, None, None]
+    k = torch.where(keep, k.float(), 0.0).reshape(b, n, chunk, hkv, dh)
+    v = torch.where(keep, v.float(), 0.0).reshape(b, n, chunk, hkv, dh)
+    # per split: (m, l, acc) over its positions < kv_len
+    qg = q.float().reshape(b, hkv, h // hkv, dh)
+    s = torch.einsum("bkgd,bnckd->bnkgc", qg, k) * dh ** -0.5
+    vmask = valid.reshape(b, n, 1, 1, chunk)
+    s = torch.where(vmask, s, -torch.inf)
+    m = s.amax(-1)                                  # -inf for empty splits
+    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bnkgc,bnckd->bnkgd", p, v)
+    # merge: the max over the used splits, then fold them in split order;
+    # splits past kv_len are skipped, not multiplied by zero
+    live = torch.arange(n, device=q.device)[None] < \
+        ((lens + chunk - 1) // chunk)[:, None]
+    mx = torch.where(live[:, :, None, None], m, -torch.inf).amax(1)
+    den = torch.zeros_like(mx)
+    out = torch.zeros(b, hkv, h // hkv, dh, device=q.device)
+    for i in range(n):
+        sel = live[:, i, None, None]
+        w = torch.exp(m[:, i] - mx)
+        den = torch.where(sel, den + w * l[:, i], den)
+        out = torch.where(sel[..., None], out + w[..., None] * acc[:, i], out)
+    out = torch.where((lens > 0)[:, None, None, None], out / den[..., None],
+                      0.0)
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+def split_decode_attention_reference(q, k_cache, v_cache, kv_len, chunk):
+    """The kernels' split-K algorithm, in f32 (the bf16 kernel also rounds
+    P to bf16 for its P.V product).  The partition rule: split s covers
+    logical positions [s * chunk, (s + 1) * chunk) below kv_len[b], with
+    `chunk` a constant (never derived from the capacity, the batch or the
+    page size); each split yields (m, l, acc); splits 0 ..
+    ceil(kv_len / chunk) - 1 are merged in that order and the rest are
+    skipped.  q (B, H, dh); k/v_cache (B, M, Hkv, dh); kv_len (B,)."""
+    m = k_cache.shape[1]
+    n = -(-m // chunk)
+    pos = torch.arange(n * chunk, device=q.device).clamp(max=max(m - 1, 0))
+    return _split_merge(q, k_cache[:, pos], v_cache[:, pos], kv_len, chunk)
+
+
+def paged_split_decode_attention_reference(q, k_pages, v_pages, page_table,
+                                           kv_len, chunk):
+    """The same split-K algorithm, reading each logical position t through
+    the page table: pool row (page_table[b, t // ps], t % ps)."""
+    ps = k_pages.shape[1]
+    cap = ps * page_table.shape[1]
+    n = -(-cap // chunk)
+    pos = torch.arange(n * chunk, device=q.device).clamp(max=max(cap - 1, 0))
+    pages = page_table[:, pos // ps]                # (B, n * chunk)
+    return _split_merge(q, k_pages[pages, pos % ps], v_pages[pages, pos % ps],
+                        kv_len, chunk)

@@ -7,6 +7,8 @@ without it:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +17,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference, paged_decode_attention)
+from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
@@ -22,10 +25,30 @@ from repro_torch.kernels.rglru_scan import (  # noqa: E402
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402,E501
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402,E501
+from repro_torch.sync import no_host_sync  # noqa: E402
 
 # the plain version computes in f32 and rounds once; the kernel's online
 # softmax sums in another order: f32 2e-5, bf16 one output ulp (2e-2)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# positions per split of the decode-attention kernels (the source's C)
+CHUNK = int(re.search(r"^constexpr int C = (\d+);",
+                      da_kernel.LIBRARY.source.read_text(), re.M)[1])
+
+
+def _assert_decode_close(out, ref, dtype):
+    """B1/B2 against the plain version.  f32: 2e-5 (atol and rtol).  bf16:
+    2e-2 of each (row, head)'s largest |ref|, at most 2e-2 -- at least 2.5
+    output ulps at that magnitude, where the kernel (P rounded to bf16 for
+    P.V) and the plain version round differently.  A flat 2e-2 would pass
+    a kernel that drops a position per split of a 2048-position row, whose
+    outputs are ~0.03."""
+    out, ref = out.float(), ref.float()
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        return
+    lim = TOL[dtype] * ref.abs().amax(-1, keepdim=True).clamp(max=1.0)
+    excess = ((out - ref).abs() - lim).amax().item()
+    assert excess <= 0, f"bf16 error exceeds its limit by {excess}"
 
 
 @pytest.fixture
@@ -52,8 +75,7 @@ def test_kernels_match_plain_at_full_width(cuda_device, dtype, b):
     lens = lens.to(cuda_device)
     out = decode_attention(q, kc, vc, lens)
     ref = decode_attention_reference(q, kc, vc, lens)
-    tol = TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    _assert_decode_close(out, ref, dtype)
     assert bool((out[0] == 0).all())
     mp = m // ps
     kp = torch.cat([kc.reshape(b * mp, ps, hkv, dh),
@@ -160,8 +182,9 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_kernel_at_head_dim_256_mqa(cuda_device, dtype):
     """recurrentgemma-2b's ring decode: H 10 on Hkv 1 (group 10), dh 256,
-    a 2048-slot ring, ragged kv_len including 0 and the full ring (the
-    CTA's ~87.5 KB of shared memory needs the opt-in above 48 KB)."""
+    a 2048-slot ring (32 splits), ragged kv_len including 0 and the full
+    ring (a split CTA's ~79 KB of shared memory in bf16, ~146 KB in f32,
+    needs the opt-in above 48 KB)."""
     b, h, hkv, m, dh = 6, 10, 1, 2048, 256
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cpu").manual_seed(256)
@@ -172,9 +195,96 @@ def test_decode_kernel_at_head_dim_256_mqa(cuda_device, dtype):
                         device=cuda_device)
     out = decode_attention(q, kc, vc, lens)
     ref = decode_attention_reference(q, kc, vc, lens)
-    tol = TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    _assert_decode_close(out, ref, dtype)
     assert bool((out[0] == 0).all())
+
+
+def _decode_inputs(device, dtype, b, h, hkv, m, dh, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*shape, generator=g).to(device, getattr(torch, dtype))
+            for shape in ((b, h, dh), (b, m, hkv, dh), (b, m, hkv, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,hkv,dh", [(12, 4, 64), (10, 1, 256)])
+def test_split_kernel_at_chunk_edges(cuda_device, dtype, h, hkv, dh):
+    """kv_len on the split edges (0, 1, C-1, C, C+1, 2C-1, 2C, 2C+1, the
+    full cache) against the plain version, at the demo LM's and
+    recurrentgemma-2b's head widths; a second call gives the same bits (no
+    atomics, a fixed merge order)."""
+    c = CHUNK
+    m = 4 * c + 24
+    lens = [0, 1, c - 1, c, c + 1, 2 * c - 1, 2 * c, 2 * c + 1, m]
+    q, kc, vc = _decode_inputs(cuda_device, dtype, len(lens), h, hkv, m, dh,
+                               dh)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    out = da_kernel.decode_attention_fwd(q, kc, vc, lens)
+    again = da_kernel.decode_attention_fwd(q, kc, vc, lens)
+    ref = decode_attention_reference(q, kc, vc, lens)
+    _assert_decode_close(out, ref, dtype)
+    assert torch.equal(out, again)
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_paged_equals_dense_bitwise_across_many_splits(cuda_device, dtype,
+                                                       ps):
+    """recurrentgemma-2b's ring widths (H 10, Hkv 1, dh 256) on a
+    2048-position cache (32 splits), pages shuffled over the pool: B2 ==
+    B1 bitwise, with NaN in the trash page and in every page no live
+    position maps to."""
+    b, h, hkv, m, dh = 6, 10, 1, 2048, 256
+    q, kc, vc = _decode_inputs(cuda_device, dtype, b, h, hkv, m, dh, 7)
+    lens = torch.tensor([2048, 0, 1, 64, 1000, 2047], dtype=torch.int32,
+                        device=cuda_device)
+    mp = m // ps
+    perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
+        ps)).to(cuda_device)
+    kp = torch.full((b * mp + 1, ps, hkv, dh), float("nan"),
+                    dtype=kc.dtype, device=cuda_device)
+    vp = kp.clone()
+    ptab = perm.reshape(b, mp).to(torch.int32)
+    live = torch.arange(mp, device=cuda_device) < ((lens + ps - 1) // ps
+                                                   )[:, None]
+    ptab = torch.where(live, ptab, b * mp).to(torch.int32)
+    kp[ptab[live].long()] = kc.reshape(b, mp, ps, hkv, dh)[live]
+    vp[ptab[live].long()] = vc.reshape(b, mp, ps, hkv, dh)[live]
+    dense = decode_attention(q, kc, vc, lens)
+    paged = paged_decode_attention(q, kp, vp, ptab, lens)
+    assert torch.equal(paged, dense)
+    assert bool(torch.isfinite(paged).all())
+
+
+@pytest.mark.cuda
+def test_decode_kernels_and_block_take_no_host_sync(cuda_device):
+    """The wrappers read nothing back from the card (the split count comes
+    from shapes): both kernels launch under sync debug mode "error", and
+    so does the engine's decode block on the card."""
+    q, kc, vc = _decode_inputs(cuda_device, "bfloat16", 4, 12, 4, 256, 64, 3)
+    lens = torch.tensor([0, 5, 129, 256], dtype=torch.int32,
+                        device=cuda_device)
+    ptab = torch.arange(16, dtype=torch.int32,
+                        device=cuda_device).reshape(4, 4)
+    kp, vp = (torch.cat([t.reshape(16, 64, 4, 64), t[:1, :64]])
+              for t in (kc, vc))
+    with no_host_sync(cuda_device):
+        dense = decode_attention(q, kc, vc, lens)
+        paged = paged_decode_attention(q, kp, vp, ptab, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)
+    cfg = registry.get_reduced_config("suncatcher-lm-100m", head_dim=64)
+    fns = registry.model_fns(cfg)
+    params = fns.init(torch.Generator().manual_seed(0), cfg, cuda_device)
+    eng = ServingEngine(cfg, fns, params,
+                        EngineConfig(max_batch=2, max_len=64, decode_block=8))
+    for uid in range(2):
+        eng.submit(Request(uid=uid, prompt=np.arange(3 + uid, dtype=np.int32),
+                           max_new_tokens=12))
+    done = eng.run()
+    assert eng.stats["decode_blocks"] > 0 and len(done) == 2
 
 
 @pytest.mark.cuda

@@ -1,8 +1,11 @@
 """The port's decode-attention kernels (B1 dense, B2 paged) against the
 JAX package: the plain PyTorch versions (what the wrappers run for CPU
 tensors) vs the Pallas kernels in interpret mode and vs the jnp oracles;
-paged vs dense and trash-page poison, bitwise.  The CUDA kernels
+paged vs dense and trash-page poison, bitwise; the plain spelling of the
+CUDA kernels' split-K algorithm against both.  The CUDA kernels
 themselves are held against the plain versions in test_torch_cuda.py."""
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,7 +21,8 @@ from repro.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention_reference as jax_paged_ref)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference, gather_pages,
-    paged_decode_attention, paged_decode_attention_reference)
+    paged_decode_attention, paged_decode_attention_reference,
+    paged_split_decode_attention_reference, split_decode_attention_reference)
 from repro_torch.kernels.decode_attention import kernel  # noqa: E402
 
 torch.set_num_threads(1)
@@ -193,3 +197,66 @@ def test_kernel_launcher_rejects_what_it_cannot_take(bad, match):
         q, k = torch.zeros(2, 4, 32), torch.zeros(2, 32, 2, 32)
     with pytest.raises((TypeError, ValueError), match=match):
         kernel.decode_attention_fwd(q, k, k, lens)
+
+
+# (dh, chunk): the CUDA source's chunk at every head dim it compiles,
+# chunk 128, and a small chunk that makes many splits
+SPLIT = [(64, 64), (64, 128), (128, 64), (128, 128), (256, 64), (64, 16)]
+
+
+def test_split_cases_cover_the_kernel_instances():
+    """The source fixes one chunk for every instance; the cases below
+    hold the plain split-K algorithm at that chunk for each head dim."""
+    src = kernel.LIBRARY.source.read_text()
+    chunks = re.findall(r"^constexpr int C = (\d+);", src, re.M)
+    assert len(chunks) == 1
+    assert {(dh, int(chunks[0])) for dh in kernel._HEAD_DIMS} <= set(SPLIT)
+
+
+@pytest.mark.parametrize("dh,chunk", SPLIT)
+def test_split_plain_matches_oracle_and_jax_kernel(dh, chunk):
+    """kv_len 0, 1, C-1, C, C+1 and the full cap (three splits, the last
+    ragged), GQA 6/2, f32: within 2e-5 of the Pallas kernel (interpret
+    mode) and of the oracle (the splits sum in another order)."""
+    b, h, hkv = 6, 6, 2
+    m = 2 * chunk + 40
+    q, k, v = _dense_case(9, b, h, hkv, m, dh)
+    lens = np.array([0, 1, chunk - 1, chunk, chunk + 1, m], np.int32)
+    got = split_decode_attention_reference(
+        _t(q, "float32"), _t(k, "float32"), _t(v, "float32"),
+        torch.from_numpy(lens), chunk).numpy()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    kern = jax_decode_attention(jq[:, None], jk, jv, jnp.asarray(lens),
+                                interpret=True)[:, 0]
+    oracle = jax_decode_ref(jq, jk, jv, jnp.asarray(lens))
+    np.testing.assert_allclose(got, _np(kern), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, _np(oracle), atol=2e-5, rtol=2e-5)
+    assert np.all(got[0] == 0.0)                         # kv_len == 0 row
+
+
+@pytest.mark.parametrize("ps", [16, 64])
+def test_split_plain_paged_equals_dense_bitwise(ps):
+    """The paged form reads each position through the page table; with
+    NaN in every pool page no live position maps to (the trash page
+    included) it equals the dense form on the gathered cache bitwise, and
+    both equal the dense form on a cache zeroed past kv_len."""
+    b, h, hkv, dh, chunk = 4, 4, 2, 64, 64
+    mp = 256 // ps
+    pool = b * mp + 3
+    lens = np.array([0, 1, 130, 256], np.int32)
+    q, kp, vp, ptab = _paged_case(10, b, h, hkv, ps, mp, dh, pool, lens)
+    unref = np.ones(pool + 1, bool)
+    live = np.arange(mp)[None] < (-(-lens // ps))[:, None]
+    unref[ptab[live]] = False
+    kp[unref], vp[unref] = np.nan, np.nan
+    tq, tk, tv = (_t(x, "float32") for x in (q, kp, vp))
+    tab, tl = torch.from_numpy(ptab), torch.from_numpy(lens)
+    paged = paged_split_decode_attention_reference(tq, tk, tv, tab, tl,
+                                                   chunk)
+    kd, vd = gather_pages(tk, tab), gather_pages(tv, tab)
+    dense = split_decode_attention_reference(tq, kd, vd, tl, chunk)
+    assert torch.equal(paged, dense) and bool(torch.isfinite(paged).all())
+    keep = (torch.arange(mp * ps)[None] < tl[:, None])[:, :, None, None]
+    clean = split_decode_attention_reference(
+        tq, torch.where(keep, kd, 0.0), torch.where(keep, vd, 0.0), tl, chunk)
+    assert torch.equal(paged, clean)
