@@ -4,7 +4,9 @@
 The source has a plain C interface; `kernels/_build.py` compiles it with
 `nvcc` for `sm_90a` at first use and loads it with `ctypes`.  Nothing here
 runs at import, so the CPU tests import this module freely.  A launch that
-CUDA refuses raises with its error code.
+CUDA refuses raises with its error code.  The bf16 kernel's TMA tensor
+maps are encoded on the host at each call from pointers, shapes and
+strides alone, so a call never synchronises.
 """
 from __future__ import annotations
 
@@ -31,6 +33,14 @@ LIBRARY = Library(Path(__file__).resolve().parent / "csrc" /
 
 
 def _check(q, k, v):
+    """Raise on what the kernels cannot take.  The bf16 kernel reads q, k
+    and v through TMA tensor maps, the f32 kernel with 16-byte loads; both
+    need, for each tensor:
+      - the head dim contiguous (stride 1);
+      - the base address 16-byte aligned;
+      - every other stride (batch, head, position) a positive multiple of
+        16 bytes below 2**40 bytes, where that dim has more than one entry
+        (`_strides` passes a harmless 16 bytes for size-1 dims)."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -40,16 +50,29 @@ def _check(q, k, v):
     if not q.is_cuda:
         raise ValueError(f"flash attention kernel needs CUDA tensors, got "
                          f"{q.device}")
-    vec = 16 // q.element_size()
+    size = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name}: head dim must be contiguous and rows "
-                             f"16-byte aligned (strides {t.stride()})")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: head dim must be contiguous (strides "
+                             f"{t.stride()})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: base address must be 16-byte aligned")
+        for n, s in zip(t.shape[:-1], t.stride()[:-1]):
+            if n > 1 and not (0 < s * size < 2 ** 40 and s * size % 16 == 0):
+                raise ValueError(f"{name}: strides must be positive "
+                                 f"multiples of 16 bytes (strides "
+                                 f"{t.stride()}, {size}-byte elements)")
+
+
+def _strides(t):
+    """Element strides of (batch, head, position), 16 bytes for a dim of
+    one entry (never stepped over; a tensor map still needs a legal one)."""
+    vec = 16 // t.element_size()
+    return [s if n > 1 else vec for n, s in zip(t.shape[:3], t.stride()[:3])]
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool):
@@ -70,7 +93,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool):
     out = torch.empty(b, sq, h, dh, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
-                                      for s in t.stride()[:3]))
+                                      for s in _strides(t)))
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, h, h // hkv, sq, skv, dh, _DTYPES[q.dtype], int(causal),

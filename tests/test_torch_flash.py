@@ -9,6 +9,8 @@ is not a multiple of 128 lets the padded keys into the softmax (max error
 0.116 at S 100).  Non-causal cases therefore compare with the JAX kernel
 only at multiples of 128 and with the JAX oracle elsewhere.
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,6 +25,9 @@ from repro.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E4
 from repro.models import layers as jl  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
+from repro_torch.kernels.flash_attention.ref import tiled_attention_reference  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -135,6 +140,73 @@ def test_plain_version_is_the_oracle():
     got = attention_reference(*map(torch.from_numpy, (q, k, v)), causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+# ------------------------------------------------ the kernel's algorithm --
+
+# the sweep shapes above, S 1000 and S 200 (not multiples of the 128-row
+# tiles), MQA, head_dim 128
+TILED_SHAPES = [
+    (1, 4, 4, 256, 64),
+    (2, 8, 2, 256, 128),
+    (1, 4, 1, 512, 64),
+    (1, 2, 2, 128, 256),
+    (1, 4, 1, 1000, 64),
+    (2, 4, 2, 200, 128),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", TILED_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_plain_version_matches_the_oracle(b, h, hkv, s, dh, dtype,
+                                                causal):
+    """The bf16 kernel's algorithm (tiles, skipped tiles above the
+    diagonal, masks on the last tile only, exp2 with the folded scale, P
+    rounded before P V) against the port's oracle on the same inputs.
+    f32: 2e-5, sums in another order.  bf16: 2e-2 (atol and rtol, one
+    output ulp; P rounded to bf16 moves each weight by at most 2**-9 of
+    itself, the outputs by less than an ulp)."""
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in _qkv(9, b, h, hkv, s, dh))
+    got = tiled_attention_reference(tq, tk, tv, causal=causal)
+    want = attention_reference(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal", [
+    *((*shape, causal) for shape in TILED_SHAPES[:4]
+      for causal in (True, False)),
+    (1, 4, 1, 1000, 64, True),
+    (2, 4, 2, 200, 128, True),
+])
+def test_tiled_plain_version_matches_the_jax_kernel(b, h, hkv, s, dh,
+                                                    causal):
+    """The same algorithm against the Pallas kernel in interpret mode, in
+    f32 where the point is the algorithm (2e-5: sums in another order).
+    At S 1000 and 200 the reference wrapper pads to its 128-row blocks,
+    which only the causal mask keeps out of the softmax (module
+    docstring), so the ragged lengths are causal here."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(10, b, h, hkv, s, dh),
+                                       "float32")
+    if s % 128:
+        want = j_flash(jq, jk, jv, causal=causal, layout="bhsd",
+                       interpret=True)
+    else:
+        want = flash_attention_fwd(jq, jk, jv, causal=causal,
+                                   interpret=True)
+    got = tiled_attention_reference(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["BQ", "BK"])
+def test_tiled_plain_version_uses_the_kernels_tiles(name):
+    """The plain version's BLOCK is the kernel's query and key tile."""
+    src = fa_kernel.LIBRARY.source.read_text()
+    assert int(re.search(rf"^constexpr int {name} = (\d+);", src,
+                         re.M)[1]) == fa_ref.BLOCK
 
 
 # ----------------------------------------------------------- dispatch ----
