@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --phase 2c   # phases 1 and 2c only, no result line
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    src/repro_torch/kernels/{decode_attention,flash_attention,rglru_scan}/
@@ -29,12 +30,19 @@
    in 128) must fail the bf16 limit.  Gradients of q, k, v through the
    autograd path against autograd through the plain version.  Times at
    the training shape beside the FLOP bound, the plain version and SDPA.
-   2c. The RG-LRU scan kernel (B4) against its plain version: the serve
-   prefill shape (16, 256, 2560), a ragged (3, 100, 70) and the long
-   prefill's (2, 2048, 2560), f32, bitwise; (1, 512, 256) bf16 within
-   0.1 (tests/test_kernels.py::_tol x 5); a == 0 gives x and a == 1 the
-   cumsum of integer-valued x, bitwise; gradients through the autograd
-   path against autograd through the plain version.  B1 at
+   2c. The RG-LRU scan kernel (B4) against its plain version, f32
+   bitwise: the serve prefill shape (16, 256, 2560), the long prefill's
+   (2, 2048, 2560), B = 1 (1, 2048, 2560) and (3, 1001, 2600) on the TMA
+   copy path; a ragged (3, 100, 70) and (2, 517, 2560) with its bases 4
+   bytes off 16-byte alignment on the cp.async path; bf16 within 0.1
+   (tests/test_kernels.py::_tol x 5) at (1, 512, 256), (2, 2048, 2560)
+   and an odd D (2, 300, 77), which the wrapper widens to f32; a == 0
+   gives x and a == 1 the cumsum of integer-valued x, bitwise; gradients
+   through the autograd path against autograd through the plain version.
+   Times at the serve and long prefill shapes and at B = 1 (f32) beside
+   the bound, the plain version, the same call after an L2 flush that
+   reads instead of writing, and an elementwise a * x that moves the same
+   bytes.  B1 at
    recurrentgemma-2b's decode widths (H 10, Hkv 1, dh 256, a 2048-slot
    ring), f32 and bf16, kv_len ragged from 0 to 2048.  Times beside the
    bounds and the plain versions, and B1's beside SDPA (and its ratio to
@@ -76,8 +84,8 @@
    torch.profiler.  Then a long run that wraps the ring: 4 requests of
    2000-2040 prompt tokens on 4 slots, max_len 4096, 64 new tokens (B4 at
    the 2048 bucket, positions past W = 2048, B1 on full rings), and the
-   same run once more under torch.profiler: device time per sub-step and
-   B1's share of it.
+   same run once more under torch.profiler: device time per sub-step,
+   B1's share of it, and B4's device time over its prefill's 18 launches.
 7. Reference: recurrentgemma's reduced config at d_model 256 (head_dim
    64, window 16), f32, on the card against the CPU: prefill, then 24
    decode steps past the window, logits within 1e-3.
@@ -85,10 +93,11 @@
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit, and before that one JSON line listing the kernels
-(B1 at dh 64, B2, B3, B4, and B1 at dh 256 in two rows: the serve run's
-rings and full rings) with their launches on their main paths (B1's
-dh-64 row phase 3, its dh-256 rows phase 6's 16-slot runs and its long
-runs), errors, times and bounds.
+(B1 at dh 64, B2, B3, B4 at the serve and the long prefill shapes, and
+B1 at dh 256 in two rows: the serve run's rings and full rings) with
+their launches on their main paths (B1's dh-64 row phase 3; B4's and
+B1's dh-256 rows phase 6's 16-slot runs and its long runs), errors,
+times and bounds; B4's rows also name their copy path.
 """
 import json
 import os
@@ -145,14 +154,18 @@ def plain_close(out, ref, dtype):
 
 class Timer:
     """Per-call device time from CUDA events, with L2 flushed before each
-    call.  The card first spins long enough for the host to queue every
-    call, so the events time the device, not the host's launch path."""
+    call by writing 64 MB, which leaves it full of dirty lines whose
+    write-backs land inside the timed call (`clean`: by reading 64 MB
+    that is never written, which leaves it clean).  The card first spins
+    long enough for the host to queue every call, so the events time the
+    device, not the host's launch path."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self.cold = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, iters=50):
+    def ms(self, fn, iters=50, clean=False):
         torch = self.torch
         for _ in range(3):
             fn()
@@ -161,7 +174,10 @@ class Timer:
         torch.cuda.synchronize()
         torch.cuda._sleep(100_000_000)      # ~50 ms of device spin
         for s, e in ev:
-            self.flush.zero_()
+            if clean:
+                self.cold.amax()
+            else:
+                self.flush.zero_()
             s.record()
             fn()
             e.record()
@@ -747,13 +763,15 @@ def scan_bound(b, s, d, itemsize):
 def rglru_kernel_phase(torch, timer):
     """B4 against its plain version, and B1 at recurrentgemma-2b's decode
     widths (H 10, Hkv 1, dh 256, M = W = 2048); returns their rows of the
-    kernels line, B1's at the serve run's rings."""
+    kernels line: B4 at the serve and long prefill shapes, B1 on the
+    serve run's rings and on full rings."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_reference)
     from repro_torch.kernels.rglru_scan import (rglru_scan,
                                                 rglru_scan_reference)
+    from repro_torch.kernels.rglru_scan import kernel as b4
     dev = torch.device("cuda")
 
     def inputs(b, s, d, dt, seed):
@@ -761,12 +779,26 @@ def rglru_kernel_phase(torch, timer):
         a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g)
         return a.to(dev, dt), torch.randn(b, s, d, generator=g).to(dev, dt)
 
-    serve_err = None
-    for b, s, d, dtype in ((16, 256, 2560, "float32"),
-                           (3, 100, 70, "float32"),
-                           (2, 2048, 2560, "float32"),
-                           (1, 512, 256, "bfloat16")):
+    # (B, S, D, dtype, offset in elements of a view into a larger buffer):
+    # the serve and long prefill shapes, B = 1, S not a multiple of the
+    # ring's stage depth with D not a multiple of its channel tile, a
+    # ragged D whose rows are not 16-byte multiples and a base 4 bytes in
+    # (both on the cp.async path), bf16 long, and bf16 at an odd D
+    # (widened to f32 for the cp.async path)
+    for b, s, d, dtype, off in ((16, 256, 2560, "float32", 0),
+                                (3, 100, 70, "float32", 0),
+                                (2, 2048, 2560, "float32", 0),
+                                (1, 2048, 2560, "float32", 0),
+                                (3, 1001, 2600, "float32", 0),
+                                (2, 517, 2560, "float32", 1),
+                                (1, 512, 256, "bfloat16", 0),
+                                (2, 2048, 2560, "bfloat16", 0),
+                                (2, 300, 77, "bfloat16", 0)):
         a, x = inputs(b, s, d, getattr(torch, dtype), b * s + d)
+        if off:
+            a, x = (torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+                    [off:].view_as(t).copy_(t) for t in (a, x))
+        path = b4.copy_path(a, x)
         out = rglru_scan(a, x)
         ref = rglru_scan_reference(a, x)
         torch.cuda.synchronize()
@@ -774,13 +806,13 @@ def rglru_kernel_phase(torch, timer):
         check(bool(torch.isfinite(out).all()) and out.dtype == x.dtype,
               f"B4 non-finite or wrong dtype at {b}x{s}x{d}")
         if dtype == "float32":
-            check(torch.equal(out, ref), f"B4 f32 {b}x{s}x{d}: not bitwise "
-                  f"equal to the plain version (max abs err {err})")
+            check(torch.equal(out, ref), f"B4 f32 {b}x{s}x{d} ({path}): not "
+                  f"bitwise equal to the plain version (max abs err {err})")
         else:
             check(err <= 0.1, f"B4 bf16 {b}x{s}x{d}: max abs err {err}")
-        if (b, s, d) == (16, 256, 2560):
-            serve_err = err
-        print(f"  B4 B={b} S={s} D={d} {dtype:8s}: max abs err {err:.3e} "
+        print(f"  B4 B={b} S={s} D={d} {dtype:8s} "
+              f"{f'base +{off * 4} B, ' if off else ''}path {path}: max abs "
+              f"err {err:.3e} "
               f"({'bitwise' if dtype == 'float32' else 'tol 0.1'})",
               flush=True)
     a, x = inputs(2, 300, 130, torch.float32, 5)
@@ -802,16 +834,30 @@ def rglru_kernel_phase(torch, timer):
           f"vs autograd through the plain version: max abs err {gerr:.3e} "
           f"(tol 1e-5)", flush=True)
 
+    # times at the serve and long prefill shapes and at B = 1; beside them
+    # the same kernel after an L2 flush that reads (no write-back of a
+    # dirty line lands inside the call) and an elementwise a * x, which
+    # moves the same bytes (a and x read once, one output written)
     times = {}
-    for b, s, d in ((16, 256, 2560), (4, 2048, 2560)):
+    for b, s, d in ((16, 256, 2560), (4, 2048, 2560), (1, 2048, 2560)):
         a, x = inputs(b, s, d, torch.float32, 9)
+        err = (rglru_scan(a, x) - rglru_scan_reference(a, x)).abs().max(
+            ).item()
+        check(err == 0, f"B4 at {b}x{s}x{d}: max abs err {err}")
+        path = b4.copy_path(a, x)
+        prod = torch.empty_like(x)
         ms = timer.ms(lambda: rglru_scan(a, x))
+        clean_ms = timer.ms(lambda: rglru_scan(a, x), clean=True)
+        mul_ms = timer.ms(lambda: torch.mul(a, x, out=prod))
         plain_ms = timer.ms(lambda: rglru_scan_reference(a, x), iters=5)
         bms, by = scan_bound(b, s, d, 4)
-        times[(b, s, d)] = (ms, plain_ms, bms, by)
-        print(f"  rglru_scan @ B={b} S={s} D={d} f32: {ms * 1e3:.2f} us | "
-              f"bound {bms * 1e3:.2f} us ({by}) | plain "
-              f"{plain_ms * 1e3:.2f} us | library: none", flush=True)
+        times[(b, s, d)] = (err, path, ms, plain_ms, bms, by)
+        print(f"  rglru_scan @ B={b} S={s} D={d} f32 ({path}): "
+              f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}), "
+              f"{bms / ms:.3f} of it | after a reading L2 flush "
+              f"{clean_ms * 1e3:.2f} us | a * x (same bytes) "
+              f"{mul_ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | "
+              f"library: none", flush=True)
 
     # B1 at dh 256, group 10, a 2048-slot ring
     h, hkv, dh, m = 10, 1, 256, 2048
@@ -883,24 +929,29 @@ def rglru_kernel_phase(torch, timer):
               f"| bound {bms * 1e3:.2f} us ({by}) | plain "
               f"{plain_ms * 1e3:.2f} us | SDPA {sdpa_ms * 1e3:.2f} us | "
               f"B1 / SDPA {ms / sdpa_ms:.3f}", flush=True)
-    ms, plain_ms, bms, by = times[(16, 256, 2560)]
-    b4 = {"name": "rglru_scan", "route": "cuda",
-          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-          "replaces": "src/repro/kernels/rglru_scan/kernel.py:26",
-          "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bms, "bound_by": by, "library_ms": None}
-    b1 = []
+    rows = []
+    for name, shape in (("rglru_scan", (16, 256, 2560)),
+                        ("rglru_scan_long", (4, 2048, 2560))):
+        err, path, ms, plain_ms, bms, by = times[shape]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/rglru_scan/csrc/"
+                               "rglru_scan.cu",
+                     "replaces": "src/repro/kernels/rglru_scan/kernel.py:26",
+                     "path": path, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
     for name, cap, err in (("decode_attention_dh256", 232, b1_err["bfloat16"]),
                            ("decode_attention_dh256_full", m, full_err)):
         ms, plain_ms, sdpa_ms, bms, by = b1_times[cap]
-        b1.append({"name": name, "route": "cuda",
-                   "source": "src/repro_torch/kernels/decode_attention/csrc/"
-                             "decode_attention.cu",
-                   "replaces": "src/repro/kernels/decode_attention/"
-                               "kernel.py:45",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms})
-    return [b4, *b1]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/decode_attention/"
+                               "csrc/decode_attention.cu",
+                     "replaces": "src/repro/kernels/decode_attention/"
+                                 "kernel.py:45",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": sdpa_ms})
+    return rows
 
 
 def _rglru_workload(np, vocab, n_req, rng):
@@ -918,8 +969,9 @@ def _rglru_workload(np, vocab, n_req, rng):
 
 def rglru_serve_phase(torch):
     """recurrentgemma-2b at full width through ServingEngine; returns the
-    launches of B4 and of B1 over the phase's served runs at 16 slots, and
-    B1's over the long runs (full 2048-slot rings)."""
+    launches of B4 over the phase's served runs at 16 slots and over its
+    long runs (prefill at (4, 2048, 2560)), then B1's over the same two
+    (the long runs' on full 2048-slot rings)."""
     import numpy as np
 
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1040,7 +1092,7 @@ def rglru_serve_phase(torch):
     rng = np.random.default_rng(1)
     long = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
             for n in (2000, 2013, 2027, 2040)]
-    b1_serve = totals[1]
+    serve = tuple(totals)
 
     def long_run():
         return run(0.7, 8, long, max_len=4096, slots=4, new=64)
@@ -1054,14 +1106,18 @@ def rglru_serve_phase(torch):
     sub = eng.stats["decode_blocks"] * 8
     del eng
     prof = profile_window(torch, "long run", lambda: long_run()[2],
-                          watch=("decode_split_kernel", "decode_merge_kernel"))
+                          watch=("decode_split_kernel", "decode_merge_kernel",
+                                 "rglru_scan_kernel"))
     if prof:
         b1_ms = sum(prof[k][0] for k in ("decode_split_kernel",
                                          "decode_merge_kernel")) * 1e3
+        b4_ms, b4_n = prof["rglru_scan_kernel"]
         print(f"  long run, device time per sub-step ({sub} sub-steps; "
               f"prefill included): {prof['busy'] * 1e3 / sub:.3f} ms, of "
               f"which B1 {b1_ms / sub:.3f} ms ({b1_ms / sub / 8 * 1e3:.2f} "
-              f"us per call, split + merge)", flush=True)
+              f"us per call, split + merge); B4 {b4_ms * 1e3:.3f} ms over "
+              f"its {b4_n} launches at (4, 2048, 2560) ("
+              f"{b4_ms * 1e6 / max(b4_n, 1):.2f} us each)", flush=True)
 
     # full-width logits from one prefill call: finite, of the right shape
     spec = fns.decode_spec(cfg, dev)
@@ -1073,7 +1129,8 @@ def rglru_serve_phase(torch):
                              torch.ones(2, dtype=torch.bool, device=dev))
     check(tuple(logits.shape) == (2, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "full-width logits")
-    return totals[0], b1_serve, totals[1] - b1_serve
+    return (serve[0], totals[0] - serve[0], serve[1],
+            totals[1] - serve[1])
 
 
 def rglru_reference(torch):
@@ -1111,8 +1168,12 @@ def rglru_reference(torch):
           f"vs CPU logits max abs err {worst:.3e} (tol 1e-3)", flush=True)
 
 
-def main():
+def main(argv):
     import torch
+    only_2c = argv == ["--phase", "2c"]
+    if argv and not only_2c:
+        print("usage: chip_smoke.py [--phase 2c]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -1161,8 +1222,14 @@ def main():
                 check(" 0 bytes spill stores, 0 bytes spill loads" in ln,
                       f"B3's bf16 kernel spills: {ln.strip()}")
 
-    print("phase 2: kernels vs plain versions", flush=True)
     timer = Timer(torch)
+    if only_2c:
+        print("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
+              "head_dim 256", flush=True)
+        print(json.dumps({"kernels": rglru_kernel_phase(torch, timer)}))
+        print("phase 2c alone: no main path driven, no result line")
+        return 0
+    print("phase 2: kernels vs plain versions", flush=True)
     rows = kernel_phase(torch, timer)
     print("phase 2b: flash-attention kernel vs plain version", flush=True)
     rows.append(flash_phase(torch, timer))
@@ -1195,9 +1262,9 @@ def main():
     torch.cuda.empty_cache()
 
     print("phase 6: serve recurrentgemma-2b (full width, bf16)", flush=True)
-    (rows[3]["launches"], rows[4]["launches"],
-     rows[5]["launches"]) = rglru_serve_phase(torch)
-    check(all(r["launches"] > 0 for r in rows[3:6]),
+    (rows[3]["launches"], rows[4]["launches"], rows[5]["launches"],
+     rows[6]["launches"]) = rglru_serve_phase(torch)
+    check(all(r["launches"] > 0 for r in rows[3:7]),
           "B4 or B1 never launched serving recurrentgemma-2b")
 
     print("phase 7: recurrentgemma reference check", flush=True)
@@ -1207,7 +1274,9 @@ def main():
           flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in ("path",) if k in r}}
+        for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1216,4 +1285,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

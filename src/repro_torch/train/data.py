@@ -10,11 +10,10 @@ distribution, so training tests can assert actual learning.
 The draws go through the port's threefry (`serving/prng.py`), so the keys,
 the uniforms and the repetition pattern are the reference's bit for bit.
 The Zipf tokens are `searchsorted(cdf, cdf[-1] * (1 - u))` as in
-`jax.random.choice(p=...)`, but over a cdf summed in order in float32 on
-the host: the reference's XLA cumsum associates differently, so a
-uniform that lands between the two cdfs' values of one entry picks a
-neighbouring token, and the Zipf tokens are not bitwise the reference's.
-(torch.cumsum of floats on the card also has no deterministic version.)
+`jax.random.choice(p=...)`, over a cdf summed on the host in float32 in
+the order of the reference's `jnp.cumsum` (`_zipf_cdf`), so they too are
+the reference's bit for bit.  (torch.cumsum of floats on the card has
+no deterministic version.)
 Batches are built on the device the pipeline was given.
 """
 from __future__ import annotations
@@ -41,6 +40,28 @@ def _zipf_probs(vocab: int) -> np.ndarray:
     return p / p.sum()
 
 
+def _blocked_cumsum(v: np.ndarray, block: int = 16) -> np.ndarray:
+    """Inclusive float32 scan in XLA's CPU association: in-order sums
+    within blocks of `block`, each block plus the exclusive prefix of the
+    block totals, the totals scanned the same way, recursively."""
+    n = v.shape[0]
+    if n <= block:
+        return np.cumsum(v, dtype=np.float32)
+    m = -(-n // block)
+    w = np.zeros(m * block, np.float32)
+    w[:n] = v
+    w = np.cumsum(w.reshape(m, block), axis=1, dtype=np.float32)
+    incl = _blocked_cumsum(w[:, -1].copy(), block)
+    excl = np.concatenate([np.zeros(1, np.float32), incl[:-1]])
+    return (w + excl[:, None]).reshape(-1)[:n]
+
+
+def _zipf_cdf(vocab: int) -> np.ndarray:
+    """The cdf `jax.random.choice` searches: `jnp.cumsum` of the float32
+    Zipf probabilities, bit for bit."""
+    return _blocked_cumsum(_zipf_probs(vocab).astype(np.float32))
+
+
 def pod_step_grid(round_idx: int, n_pods: int, inner_steps: int,
                   pod_stride: int = 1_000_000) -> np.ndarray:
     """(n_pods, H) step-id grid for DiLoCo round `round_idx`: each pod
@@ -60,9 +81,8 @@ class SyntheticLM:
                 f"(the codebook and VLM families are not)")
         self.cfg = cfg
         self.device = torch.device(device)
-        cdf = np.cumsum(_zipf_probs(cfg.vocab_size).astype(np.float32),
-                        dtype=np.float32)
-        self._cdf = torch.from_numpy(cdf).to(self.device)
+        self._cdf = torch.from_numpy(_zipf_cdf(cfg.vocab_size)).to(
+            self.device)
         self._key = prng.PRNGKey(cfg.seed, self.device)
 
     def _draw(self, steps: torch.Tensor) -> dict:

@@ -24,6 +24,7 @@ from repro_torch.kernels._build import Library  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_reference)
+from repro_torch.kernels.rglru_scan import kernel as rglru_scan_kernel  # noqa: E402,E501
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402,E501
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402,E501
@@ -33,8 +34,10 @@ from repro_torch.sync import no_host_sync  # noqa: E402
 # softmax sums in another order: f32 2e-5, bf16 one output ulp (2e-2)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # positions per split of the decode-attention kernels (the source's C)
-# B3's library as the source builds it (the perturbation test swaps it)
+# B3's and B4's libraries as their sources build them (the perturbation
+# tests swap them)
 _FA_LIBRARY = fa_kernel.LIBRARY
+_SCAN_LIBRARY = rglru_scan_kernel.LIBRARY
 CHUNK = int(re.search(r"^constexpr int C = (\d+);",
                       da_kernel.LIBRARY.source.read_text(), re.M)[1])
 
@@ -398,22 +401,36 @@ def test_decode_kernels_and_block_take_no_host_sync(cuda_device):
     assert eng.stats["decode_blocks"] > 0 and len(done) == 2
 
 
+def _scan_inputs(device, b, s, d, dtype, seed, off=0):
+    """a in [0.2, 0.999), x normal; `off` > 0 puts both in views `off`
+    elements into larger buffers (bases off 16-byte alignment)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g).to(device, dt)
+    x = torch.randn(b, s, d, generator=g).to(device, dt)
+    if off:
+        a, x = (torch.empty(t.numel() + off, dtype=dt, device=device)
+                [off:].view_as(t).copy_(t) for t in (a, x))
+    return a, x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,d,dtype", [
     (16, 256, 2560, "float32"),     # the serve prefill shape
     (3, 100, 70, "float32"),        # ragged: no padding anywhere
     (2, 2048, 2560, "float32"),     # the long prefill's bucket
     (1, 512, 256, "bfloat16"),
+    (1, 2048, 2560, "float32"),     # B = 1: 80 channel tiles
+    (3, 1001, 2600, "float32"),     # S, D off the stage and tile sizes
+    (2, 2048, 2560, "bfloat16"),
+    (2, 300, 77, "bfloat16"),       # odd D: widened to f32 (cp.async)
 ])
 def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, dtype):
     """B4 against the plain version: bitwise at f32 (the same two
     roundings per step); bf16 within tests/test_kernels.py::_tol x 5 (the
     f32 carry is the same, the output rounds once)."""
     dt = getattr(torch, dtype)
-    g = torch.Generator(device="cpu").manual_seed(b * s + d)
-    a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g).to(
-        cuda_device, dt)
-    x = torch.randn(b, s, d, generator=g).to(cuda_device, dt)
+    a, x = _scan_inputs(cuda_device, b, s, d, dtype, b * s + d)
     before = rglru_scan_fwd.launches
     out = rglru_scan(a, x)
     assert rglru_scan_fwd.launches == before + 1
@@ -425,6 +442,90 @@ def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, dtype):
     else:
         torch.testing.assert_close(out.float(), ref.float(), atol=0.1,
                                    rtol=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,off,path", [
+    (2560, "float32", 0, "tma"),
+    (2560, "float32", 1, "cp.async"),     # bases 4 bytes off
+    (70, "float32", 0, "cp.async"),       # rows of 280 bytes
+    (2600, "bfloat16", 0, "tma"),
+    (2560, "bfloat16", 1, "cp.async"),    # bases 2 bytes off: widened
+])
+def test_rglru_scan_kernel_copy_paths(cuda_device, d, dtype, off, path):
+    """Each copy path that fills the ring, at 1001 steps (not a multiple
+    of the 32-step stage): f32 bitwise equal to the plain version, and a
+    bf16 layout TMA cannot take (widened to f32) bitwise equal to the
+    plain version too (the same carry, one rounding to nearest even)."""
+    a, x = _scan_inputs(cuda_device, 2, 1001, d, dtype, d + off, off)
+    assert rglru_scan_kernel.copy_path(a, x) == path
+    out = rglru_scan(a, x)
+    assert out.dtype == x.dtype
+    assert torch.equal(out, rglru_scan_reference(a, x))
+
+
+def _jittered_scan_source(race):
+    """rglru_scan.cu with a warp-uniform pseudo-random sleep of 0-4 us
+    before every copy issue (both paths) and every wait of the walker;
+    `race` plants an early release: the walker hands each stage back to
+    the producer before it reads it."""
+    def sub(text, a, b, n=1):
+        assert text.count(a) == n, a
+        return text.replace(a, b)
+    s = rglru_scan_kernel.LIBRARY.source.read_text()
+    s = sub(s, "__device__ __forceinline__ uint32_t smem_u32(", """
+__device__ __forceinline__ void jitter(uint32_t x) {
+  x ^= x >> 16; x *= 0x7feb352du; x ^= x >> 15; x *= 0x846ca68bu;
+  __nanosleep((x ^ (x >> 16)) & 4095u);
+}
+__device__ __forceinline__ uint32_t smem_u32(""")
+    s = sub(s, "          mbar_expect_tx(full + 8 * s,",
+            "          jitter(blockIdx.x * 7919u + k * 31u + 1u);\n"
+            "          mbar_expect_tx(full + 8 * s,")
+    s = sub(s, "#pragma unroll 8\n",
+            "        jitter(blockIdx.x * 7919u + k * 31u + 2u);\n"
+            "#pragma unroll 8\n")
+    wait = "    mbar_wait(full + 8 * s, (k / NS) & 1);\n"
+    s = sub(s, wait, "    jitter(blockIdx.x * 7919u + k * 31u + 3u);\n" + wait)
+    if race:
+        s = sub(s, "mbar_arrive(empty + 8 * s);", "", n=2)
+        s = sub(s, wait, wait + "    mbar_arrive(empty + 8 * s);\n"
+                "    jitter(blockIdx.x * 7919u + k * 31u + 4u);\n")
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("race", [False, True])
+def test_rglru_scan_kernel_is_bitwise_stable_under_timing_perturbation(
+        cuda_device, tmp_path, monkeypatch, race):
+    """The ring's synchronisation, checked by perturbing its timing
+    (compute-sanitizer can refuse a device as unsupported): with random
+    sleeps before the producer's copies and the walker's waits, three
+    calls at the long prefill shape (TMA), bf16 at ragged S and D (TMA)
+    and a ragged f32 layout (cp.async) stay bitwise equal to the
+    unperturbed kernel's, while a planted early release of each stage
+    changes them."""
+    src = tmp_path / "csrc" / "rglru_scan.cu"
+    src.parent.mkdir()
+    src.write_text(_jittered_scan_source(race))
+    jittered = Library(src, rglru_scan_kernel._declare)
+    changed = 0
+    for b, s, d, dtype in ((4, 2048, 2560, "float32"),
+                           (3, 1001, 2600, "bfloat16"),
+                           (3, 1001, 70, "float32")):
+        a, x = _scan_inputs(cuda_device, b, s, d, dtype, s + d)
+        monkeypatch.setattr(rglru_scan_kernel, "LIBRARY", _SCAN_LIBRARY)
+        want = rglru_scan_fwd(a, x)
+        monkeypatch.setattr(rglru_scan_kernel, "LIBRARY", jittered)
+        for _ in range(3):
+            got = rglru_scan_fwd(a, x)
+            changed += int((got != want).sum())
+    print(f"planted early release {race}: {changed} outputs moved in 9 "
+          f"calls")
+    if race:
+        assert changed > 0, "the planted early release went unseen"
+    else:
+        assert changed == 0, f"{changed} outputs moved under perturbation"
 
 
 @pytest.mark.cuda

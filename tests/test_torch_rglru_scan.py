@@ -114,3 +114,24 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         rglru_scan_fwd(a.half(), a.half())
     with pytest.raises(ValueError, match="shape"):
         rglru_scan_fwd(a, torch.ones(1, 4, 9))
+
+
+@pytest.mark.parametrize("d,dtype,off,path", [
+    (2560, torch.float32, 0, "tma"),
+    (2600, torch.bfloat16, 0, "tma"),      # 5200-byte rows
+    (70, torch.float32, 0, "cp.async"),    # 280-byte rows
+    (2560, torch.float32, 1, "cp.async"),  # bases 4 bytes off
+    (77, torch.bfloat16, 0, "cp.async"),
+    (2560, torch.bfloat16, 8, "tma"),      # 16 bytes off: aligned again
+])
+def test_copy_path_follows_the_tma_rule(d, dtype, off, path):
+    """The kernel's ring is filled by TMA where rows are whole 16-byte
+    units and both bases are 16-byte aligned, by cp.async else; the
+    choice reads only shapes and addresses, so it is the same here."""
+    from repro_torch.kernels.rglru_scan.kernel import copy_path
+    buf = torch.zeros(2 * 3 * d + off + 64, dtype=dtype)
+    base = (-buf.data_ptr() % 16) // buf.element_size()   # 16-byte start
+    a = buf[base + off:base + off + 2 * 3 * d].view(2, 3, d)
+    x = torch.zeros(2, 3, d, dtype=dtype)
+    assert x.data_ptr() % 16 == 0
+    assert copy_path(a, x) == path

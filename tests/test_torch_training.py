@@ -282,15 +282,10 @@ def test_batch_block_is_stacked_batch_at():
             assert torch.equal(block[k][i], data.batch_at(5 + i)[k])
 
 
-@pytest.mark.parametrize("vocab,min_share", [(512, 0.99), (32768, 0.95)])
-def test_data_matches_jax_stream_but_for_cumsum_rounding(vocab, min_share):
-    """Keys, uniforms and the repetition pattern are the reference's bit
-    for bit, so every fourth position matches exactly.  The Zipf tokens
-    search a cdf summed in order in f32, where XLA's cumsum associates
-    differently (330 of 512 and 31515 of 32768 entries differ in the last
-    bits): a uniform landing between the two cdfs' values picks the
-    neighbouring token.  Measured share of equal tokens over these four
-    steps: 1.0 at vocab 512, 0.979 at vocab 32768."""
+@pytest.mark.parametrize("vocab", [512, 32768])
+def test_data_matches_jax_stream_exactly(vocab):
+    """Keys, uniforms, the repetition pattern and the Zipf cdf are the
+    reference's bit for bit, so every token of four steps is."""
     cfg = dict(vocab_size=vocab, seq_len=128, global_batch=8, seed=0)
     tdata_ = SyntheticLM(DataConfig(**cfg), "cpu")
     # the reference stream as jax draws it by default: other test modules
@@ -299,13 +294,23 @@ def test_data_matches_jax_stream_but_for_cumsum_rounding(vocab, min_share):
         jdata = JSyntheticLM(JDataConfig(**cfg))
         wants = [np.asarray(jdata.batch_at(step)["tokens"])
                  for step in range(4)]
-    shares = []
     for step, want in enumerate(wants):
-        got = tdata_.batch_at(step)["tokens"].numpy()
-        np.testing.assert_array_equal(got[:, 3::4], want[:, 3::4])
-        assert np.abs(got.astype(int) - want).max() <= 1
-        shares.append((got == want).mean())
-    assert np.mean(shares) >= min_share
+        np.testing.assert_array_equal(
+            tdata_.batch_at(step)["tokens"].numpy(), want)
+
+
+@pytest.mark.parametrize("vocab", [7, 100, 1024, 32768, 50257, 256000])
+def test_zipf_cdf_is_jnp_cumsum_bitwise(vocab):
+    """`_zipf_cdf` against the cdf `jax.random.choice` searches: the
+    `jnp.cumsum` of the reference's float32 probabilities, bit for bit.
+    This pins XLA's association, so a jax whose cumsum sums in another
+    order fails here."""
+    from repro.train.data import _zipf_probs as j_zipf_probs
+    with jax.enable_x64(False):
+        want = np.asarray(jnp.cumsum(jnp.asarray(j_zipf_probs(vocab))))
+    got = tdata._zipf_cdf(vocab)
+    assert want.dtype == got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_pod_step_grid_is_the_reference_grid():
