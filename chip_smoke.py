@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --phase 2c   # phases 1 and 2c only, no result line
+  python3 chip_smoke.py --phase 8    # phases 1 and 8-10 only, no result line
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    src/repro_torch/kernels/{decode_attention,flash_attention,rglru_scan}/
@@ -89,15 +90,43 @@
 7. Reference: recurrentgemma's reduced config at d_model 256 (head_dim
    64, window 16), f32, on the card against the CPU: prefill, then 24
    decode steps past the window, logits within 1e-3.
+8. DiLoCo: suncatcher-lm-100m at full width (bf16 compute, f32 masters),
+   2 pods x H 8, SyntheticLM seq 1024 and batch 8 per pod step, int8
+   error-feedback compression, pod masks from ConstellationLinkModel,
+   under DiLoCoSupervisor for 4 rounds with a whole-round rollback forced
+   at round 3 and a snapshot every 2 rounds (keep 1, two replicas).
+   Losses finite and falling; the replay verified bitwise; one host
+   drain per round run; B3 launched 24 times per inner step run; the
+   masks used equal `mask_at` computed on the CPU; sent + residual ==
+   delta + ef bitwise at every leaf (int8, top-k); a round with pod 1
+   NaN-poisoned gives pod_bad [F, T] and outer_ok, bitwise equal to the
+   plain round with pod 1 masked by hand and to make_inner_steps +
+   outer_step.  Prints one snapshot's time (device to host, replicated
+   write), one round's wall time and tok/s, one round under
+   torch.profiler, the outer sync's device time with none, int8 and
+   top-k, and peak memory.  Phases 8-10 run under
+   torch.use_deterministic_algorithms(True).
+9. Co-residency: `run_coserve` at full width, 2 pods x H 4, 3 rounds, a
+   rollback forced at round 1, publish every round with a holdback of 1;
+   an engine of 8 slots (max_len 512, decode_block 8) serves 16 greedy
+   requests of 4-200 prompt tokens from the published params.  Every
+   request completes, published round <= verified round, >= 1 swap and
+   >= 1 candidate dropped by the rollback, B1 and B3 launched, and each
+   request's tokens equal a fresh engine's serving, alone, the param
+   version it was admitted under.
+10. Reference: the micro DiLoCo config (2 layers, d 32, head_dim 64,
+   vocab 256; 2 pods x H 4, int8), f32, 2 rounds on the card against the
+   CPU: losses and global params within 1e-3.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit, and before that one JSON line listing the kernels
 (B1 at dh 64, B2, B3, B4 at the serve and the long prefill shapes, and
 B1 at dh 256 in two rows: the serve run's rings and full rings) with
-their launches on their main paths (B1's dh-64 row phase 3; B4's and
-B1's dh-256 rows phase 6's 16-slot runs and its long runs), errors,
-times and bounds; B4's rows also name their copy path.
+their launches on their main paths (B1's dh-64 row phases 3 and 9; B3's
+phases 5, 8 and 9; B4's and B1's dh-256 rows phase 6's 16-slot runs and
+its long runs), errors, times and bounds; B4's rows also name their copy
+path.
 """
 import json
 import os
@@ -1168,11 +1197,393 @@ def rglru_reference(torch):
           f"vs CPU logits max abs err {worst:.3e} (tol 1e-3)", flush=True)
 
 
+def bits_equal(torch, a, b):
+    """Bitwise equality of two tensors, NaNs included."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(iv), b.view(iv))
+    return torch.equal(a, b)
+
+
+def trees_bits_equal(torch, a, b, keys):
+    from repro_torch.train.tree import tree_paths
+    pa = {k: v for k, v in tree_paths(a).items() if k.startswith(keys)}
+    pb = {k: v for k, v in tree_paths(b).items() if k.startswith(keys)}
+    return list(pa) == list(pb) and all(bits_equal(torch, pa[k], pb[k])
+                                        for k in pa)
+
+
+def poison_pod(torch, d_state, pod):
+    """d_state with pod `pod`'s replica all NaN (a new tree)."""
+    from repro_torch.train.tree import tree_map
+
+    def one(x):
+        x = x.clone()
+        x[pod] = float("nan")
+        return x
+    return {**d_state, "pod_params": tree_map(one, d_state["pod_params"])}
+
+
+def diloco_phase(torch):
+    """DiLoCo at the demo LM's published widths under the DiLoCoSupervisor:
+    2 pods, H 8, int8 EF compression, constellation masks, 4 rounds with
+    a whole-round rollback forced at round 3 and a snapshot every 2
+    rounds.  Returns B3's launches over that run."""
+    import numpy as np
+
+    from repro_torch.core.isl import ConstellationLinkModel, LivenessConfig
+    from repro_torch.distributed.compression import ef_wire_roundtrip
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
+                                   DiLoCoSupervisor, FTConfig, SyntheticLM,
+                                   TrainConfig, diloco_init,
+                                   make_diloco_round, make_inner_steps,
+                                   outer_step, outer_wire_bytes,
+                                   pod_step_grid, save_replicated_async)
+    from repro_torch.train.checkpoint import host_copy
+    from repro_torch.train.fault_tolerance import drain
+    from repro_torch.train.tree import tree_leaves, tree_map, tree_paths
+    dev = torch.device("cuda")
+    cfg = registry.get_config("suncatcher-lm-100m")
+    fns = registry.model_fns(cfg)
+    n_pods, h, seq, batch, n_rounds = 2, 8, 1024, 8, 4
+    tokens = n_pods * h * seq * batch
+    dcfg = DiLoCoConfig(n_pods=n_pods, inner_steps=h)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=2,
+                       total_steps=n_rounds * h)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0), dev)
+    params = fns.init(torch.Generator().manual_seed(0), cfg, dev)
+    window = FTConfig(checkpoint_dirs=()).gnorm_window
+    rnd = make_diloco_round(cfg, fns, tcfg, dcfg, compress="int8",
+                            data=data, screen_window=window, supervise=True)
+    d0 = diloco_init(params, dcfg, compress="int8", screen_window=window)
+    state_gb = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(d0)) / 1e9
+    wire = outer_wire_bytes(params, "int8")
+    live_cfg = LivenessConfig(n_pods=n_pods, outer_wire_bytes=wire)
+    calls = []
+
+    def watched(d, grid, mask, thr):
+        calls.append((grid, mask))
+        return rnd(d, grid, mask, thr)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = (os.path.join(tmp, "a"), os.path.join(tmp, "b"))
+        ft = FTConfig(checkpoint_dirs=dirs, checkpoint_every=2 * h, keep=1)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        sup = DiLoCoSupervisor(watched, d0, dcfg, ft,
+                               liveness=ConstellationLinkModel(cfg=live_cfg))
+        sup.run(n_rounds, forced_rollback_at=[3])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        st, losses = sup.stats, sup.mean_losses
+        print(f"  DiLoCo run: {n_pods} pods x H {h}, {len(calls)} rounds run "
+              f"for {n_rounds} kept, {len(calls) * tokens} tokens in "
+              f"{dt:.3f} s ({st['checkpoints'] // len(dirs)} snapshots of "
+              f"{state_gb:.3f} GB to {len(dirs)} replicas included) | B3 "
+              f"launches {launches} | peak {peak:.1f} MiB",
+              flush=True)
+        print(f"    stats {st}", flush=True)
+        print(f"    mean pod loss per round "
+              f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+        check(len(losses) == n_rounds and all(np.isfinite(losses)),
+              f"DiLoCo losses not finite: {losses}")
+        check(losses[-1] < losses[0],
+              f"DiLoCo loss did not fall ({losses[0]} -> {losses[-1]})")
+        check(st["rollbacks"] == 1 and st["replay_verified_rounds"] >= 1
+              and st["replay_mismatches"] == 0,
+              f"rollback replay not verified: {st}")
+        check(st["drains"] == len(calls) == 6,
+              f"{st['drains']} host drains for {len(calls)} rounds run, "
+              f"want one each (6)")
+        check(launches == 2 * cfg.n_layers * len(calls) * n_pods * h,
+              f"B3 launched {launches} times, want 24 x {len(calls)} rounds "
+              f"x {n_pods} pods x {h} steps")
+        fresh = ConstellationLinkModel(cfg=live_cfg)
+        for grid, mask in calls:
+            r = int(grid[0, 0]) // h
+            check(mask.cpu().numpy().tobytes()
+                  == fresh.mask_at(r)[0].tobytes(),
+                  f"round {r}: the pod mask used differs from mask_at")
+        print(f"  one host drain per round run; B3 launched 24 per inner "
+              f"step; replay verified bitwise; masks used == mask_at on the "
+              f"CPU ({[m.tolist() for _, m in calls]})", flush=True)
+
+        # one snapshot by itself: device to host, then the replicated
+        # background write the supervisor starts, joined
+        base = sup.d_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = host_copy(base)
+        t1 = time.perf_counter()
+        for t in save_replicated_async(snap, dirs, 10**6, keep=1,
+                                       copy=False):
+            t.join()
+        t2 = time.perf_counter()
+        del snap
+        print(f"  one snapshot of {state_gb:.3f} GB: device to host "
+              f"{t1 - t0:.3f} s, replicated write (2 replicas, parallel) "
+              f"{t2 - t1:.3f} s", flush=True)
+
+    # EF invariant at every full-width leaf: sent + residual == delta + ef
+    g = torch.Generator(device=dev).manual_seed(3)
+    for method in ("int8", "topk"):
+        for name, e in tree_paths(base["pod_ef"]).items():
+            delta = 1e-3 * torch.randn(e.shape, generator=g, device=dev)
+            counts = (n_pods,) + (1,) * (e.dim() - 1)
+            _, sent, resid = ef_wire_roundtrip(delta, e, counts, method)
+            check(torch.equal(sent + resid, delta + e),
+                  f"{method} {name}: sent + residual != delta + ef")
+    print(f"  sent + residual == delta + ef bitwise at every leaf (int8, "
+          f"top-k), EF from the run", flush=True)
+
+    # a NaN-poisoned pod: the supervised round == the plain round with
+    # that pod masked by hand == make_inner_steps + outer_step
+    grid = torch.as_tensor(pod_step_grid(n_rounds, n_pods, h), device=dev)
+    ones = torch.ones(n_pods, device=dev)
+    hand = torch.tensor([1.0, 0.0], device=dev)
+    thr = torch.tensor([3.0, 10.0], device=dev)
+    got, metrics = rnd(poison_pod(torch, base, 1), grid, ones, thr)
+    metrics = drain(metrics)
+    check(metrics["pod_bad"].tolist() == [False, True]
+          and bool(metrics["outer_ok"]),
+          f"poisoned pod: pod_bad {metrics['pod_bad']}, outer_ok "
+          f"{metrics['outer_ok']}")
+    plain = make_diloco_round(cfg, fns, tcfg, dcfg, compress="int8",
+                              data=data, screen_window=window)
+    ref, _ = plain(poison_pod(torch, base, 1), grid, hand, thr)
+    check(trees_bits_equal(torch, got, ref, ("global_params", "outer_m",
+                                             "pod_params")),
+          "supervised poisoned round != plain round with a hand mask")
+    del got
+    inner = make_inner_steps(cfg, fns, tcfg, dcfg)
+    mid, _ = inner(poison_pod(torch, base, 1), data.batch_block(grid))
+    io = outer_step(mid, dcfg, pod_mask=hand, compress="int8")
+    del mid
+    check(trees_bits_equal(torch, io, ref, ("global_params", "outer_m",
+                                            "pod_params", "pod_opt",
+                                            "pod_ef", "step")),
+          "make_diloco_round != make_inner_steps + outer_step")
+    del io, ref
+    print("  poisoned pod: pod_bad [False, True], outer_ok; supervised "
+          "round == plain round with a hand mask == make_inner_steps + "
+          "outer_step, bitwise", flush=True)
+
+    # round wall time, then one round under the profiler
+    def one_round():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rnd(base, grid, ones, thr)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    wall = one_round()
+    print(f"  one round ({n_pods} pods x {h} steps, int8, screens, no "
+          f"snapshot): {wall:.3f} s = {tokens / wall:.1f} tok/s "
+          f"({tokens} tokens)", flush=True)
+    profile_window(torch, "one DiLoCo round", one_round,
+                   watch=("flash_fwd_tc",))
+
+    # the outer sync by itself, on pod replicas moved off the globals
+    moved = {**base, "pod_params": tree_map(
+        lambda x: x + 1e-3 * torch.randn(x.shape, generator=g, device=dev),
+        base["pod_params"])}
+    for method in (None, "int8", "topk"):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        outer_step(moved, dcfg, pod_mask=ones, compress=method)
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(3):
+            outer_step(moved, dcfg, pod_mask=ones, compress=method)
+        ev[1].record()
+        torch.cuda.synchronize()
+        print(f"  outer sync ({method or 'none'}): "
+              f"{ev[0].elapsed_time(ev[1]) / 3:.3f} ms of device time "
+              f"(mean of 3; wire {outer_wire_bytes(params, method) / 1e6:.2f}"
+              f" MB per pod)", flush=True)
+    return launches
+
+
+def coserve_phase(torch):
+    """run_coserve at the demo LM's published widths: DiLoCo rounds (2
+    pods, H 4, 3 rounds, a rollback forced at round 1) beside an engine
+    of 8 slots serving 16 greedy requests from published params.  Returns
+    (B3 launches, B1 launches) over that run."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.coserve import run_coserve
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
+                                   DiLoCoSupervisor, FTConfig,
+                                   ParamPublisher, PublishConfig,
+                                   SyntheticLM, TrainConfig, diloco_init,
+                                   make_diloco_round, snapshot_global_params)
+    dev = torch.device("cuda")
+    cfg = registry.get_config("suncatcher-lm-100m")
+    fns = registry.model_fns(cfg)
+    n_pods, h, seq, batch, n_rounds, max_new = 2, 4, 1024, 8, 3, 32
+    dcfg = DiLoCoConfig(n_pods=n_pods, inner_steps=h)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=2,
+                       total_steps=n_rounds * h)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0), dev)
+    window = FTConfig(checkpoint_dirs=()).gnorm_window
+    d_state = diloco_init(fns.init(torch.Generator().manual_seed(0), cfg,
+                                   dev), dcfg, screen_window=window)
+    rnd = make_diloco_round(cfg, fns, tcfg, dcfg, data=data,
+                            screen_window=window, supervise=True)
+    ecfg = EngineConfig(max_batch=8, max_len=512, decode_block=8)
+    snap0 = snapshot_global_params(d_state)
+    eng = ServingEngine(cfg, fns, snap0, ecfg)
+    versions = {0: snap0}
+
+    def sink(p):
+        versions[eng.swap_params(p)] = p
+    pub = ParamPublisher(sink, PublishConfig(publish_every=1,
+                                             holdback_rounds=1))
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(4, 201))).astype(np.int32),
+        max_new_tokens=max_new) for i in range(16)]
+    prompts = {r.uid: r.prompt for r in reqs}
+    with tempfile.TemporaryDirectory() as tmp:
+        ft = FTConfig(checkpoint_dirs=(os.path.join(tmp, "a"),
+                                       os.path.join(tmp, "b")),
+                      checkpoint_every=2 * h, keep=1)
+        sup = DiLoCoSupervisor(rnd, d_state, dcfg, ft, publisher=pub)
+        decode_attention.launches = 0
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        # one decode block per drained round: the first requests are
+        # still in flight when the first publication is staged, so the
+        # swap waits for them and later requests decode on newer params
+        done = run_coserve(sup, eng, reqs, n_rounds, forced_rollback_at=[1],
+                           blocks_per_round=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        b1, b3 = decode_attention.launches, flash_attention.launches
+    s, ps = eng.stats, pub.stats
+    used = sorted({r._params_version for r in done})
+    print(f"  co-resident: {len(sup.history)} rounds kept "
+          f"({sup.stats['drains']} run) x {n_pods} pods x H {h} + "
+          f"{len(done)} requests ({s['tokens']} tokens) in {dt:.3f} s | "
+          f"{s['tokens'] / dt:.1f} tok/s served | swaps {s['swaps']} | "
+          f"publish {ps} | published round {pub.published_round} <= "
+          f"verified {sup.verified_round} | versions served {used} | "
+          f"launches B1 {b1} B3 {b3}", flush=True)
+    check(len(done) == 16 and all(r.done and len(r.generated) == max_new
+                                  for r in done),
+          "co-serve: not every request completed")
+    check(pub.published_round <= sup.verified_round,
+          "a round was published past the verification watermark")
+    check(s["swaps"] >= 1 and ps["dropped_rollback"] >= 1,
+          f"co-serve: swaps {s['swaps']}, dropped {ps['dropped_rollback']}")
+    check(b1 > 0, "B1 never launched while co-serving")
+    check(len(used) >= 2, f"every request decoded on one version {used}")
+    check(b3 == 2 * cfg.n_layers * sup.stats["drains"] * n_pods * h,
+          f"B3 launched {b3} times, want 24 per inner step run")
+    for r in done:
+        alone = ServingEngine(cfg, fns, versions[r._params_version], ecfg)
+        alone.submit(Request(uid=r.uid, prompt=prompts[r.uid],
+                             max_new_tokens=max_new))
+        check(alone.run()[0].generated == r.generated,
+              f"request {r.uid}: tokens differ from a fresh engine serving "
+              f"version {r._params_version} alone")
+    print(f"  every request's tokens == a fresh engine serving, alone, the "
+          f"version it was admitted under (versions {used})", flush=True)
+    return b3, b1
+
+
+def diloco_reference(torch):
+    """The micro DiLoCo config (2 layers, d 32, head_dim 64, vocab 256,
+    seq 8, batch 2; 2 pods, H 4, int8), f32: 2 supervised rounds on the
+    card against the same rounds on the CPU."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.train import (DataConfig, DiLoCoConfig, SyntheticLM,
+                                   TrainConfig, diloco_init,
+                                   make_diloco_round, pod_step_grid)
+    from repro_torch.train.tree import tree_map, tree_paths
+    cfg = registry.get_reduced_config(
+        "suncatcher-lm-100m", compute_dtype="float32", head_dim=64,
+        n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64,
+        vocab_size=256)
+    fns = registry.model_fns(cfg)
+    dcfg = DiLoCoConfig(n_pods=2, inner_steps=4)
+    cpu = fns.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    out = {}
+    for d in ("cpu", "cuda"):
+        data = SyntheticLM(DataConfig(vocab_size=256, seq_len=8,
+                                      global_batch=2), d)
+        rnd = make_diloco_round(cfg, fns, TrainConfig(warmup_steps=2,
+                                                      total_steps=100),
+                                dcfg, compress="int8", data=data,
+                                screen_window=16, supervise=True)
+        st = diloco_init(tree_map(lambda x: x.to(d), cpu), dcfg,
+                         compress="int8", screen_window=16)
+        losses = []
+        for r in range(2):
+            st, m = rnd(st, torch.as_tensor(pod_step_grid(r, 2, 4),
+                                            device=d),
+                        torch.ones(2, device=d),
+                        torch.tensor([3.0, 10.0], device=d))
+            losses.append(m["loss"].cpu())
+        out[d] = torch.stack(losses), tree_paths(st["global_params"])
+    lerr = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    perr = max((v.cpu() - out["cpu"][1][k]).abs().max().item()
+               for k, v in out["cuda"][1].items())
+    check(lerr <= 1e-3 and perr <= 1e-3 and np.isfinite(perr),
+          f"DiLoCo card vs CPU: losses {lerr}, global params {perr}")
+    print(f"  micro DiLoCo f32 (int8, 2 rounds): card vs CPU losses max "
+          f"abs err {lerr:.3e}, global params {perr:.3e} (tol 1e-3)",
+          flush=True)
+
+
+def new_paths(torch):
+    """Phases 8-10 under deterministic algorithms (the supervisor verifies
+    replayed rounds bitwise).  Returns (B3 launches, B1 launches) on the
+    DiLoCo and co-serve paths."""
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        print("phase 8: DiLoCo suncatcher-lm-100m (full width, bf16, 2 pods "
+              "x H 8, int8, constellation)", flush=True)
+        b3 = diloco_phase(torch)
+        torch.cuda.empty_cache()
+        print("phase 9: co-resident DiLoCo + serving (full width)",
+              flush=True)
+        b3_co, b1 = coserve_phase(torch)
+        torch.cuda.empty_cache()
+        print("phase 10: DiLoCo reference check", flush=True)
+        diloco_reference(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    check(b3 > 0 and b3_co > 0 and b1 > 0,
+          "a kernel never launched on the DiLoCo or co-serve path")
+    return b3 + b3_co, b1
+
+
 def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
-    if argv and not only_2c:
-        print("usage: chip_smoke.py [--phase 2c]", file=sys.stderr)
+    only_new = argv == ["--phase", "8"]
+    if argv and not (only_2c or only_new):
+        print("usage: chip_smoke.py [--phase 2c | --phase 8]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1223,6 +1634,10 @@ def main(argv):
                       f"B3's bf16 kernel spills: {ln.strip()}")
 
     timer = Timer(torch)
+    if only_new:
+        new_paths(torch)
+        print("phases 8-10 alone: no result line")
+        return 0
     if only_2c:
         print("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256", flush=True)
@@ -1269,6 +1684,11 @@ def main(argv):
 
     print("phase 7: recurrentgemma reference check", flush=True)
     rglru_reference(torch)
+    torch.cuda.empty_cache()
+
+    b3, b1 = new_paths(torch)
+    rows[2]["launches"] += b3
+    rows[0]["launches"] += b1
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

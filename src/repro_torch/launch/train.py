@@ -1,17 +1,27 @@
-"""Training launcher of the PyTorch port: one FaultTolerantTrainer on one
-device, fused K-step drains by default.
+"""Training launcher of the PyTorch port on one device: a
+FaultTolerantTrainer with fused K-step drains, or DiLoCo rounds under the
+DiLoCoSupervisor.
 
+  # fault-tolerant single-replica training, fused K-step drains
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 16 \
       --seq-len 1024 --batch 8 --drain-every 8
+
+  # DiLoCo: 2 pods, one round per host drain, int8 EF-compressed outer
+  # sync, pod liveness from the orbital/ISL/radiation stack
+  PYTHONPATH=src python -m repro_torch.launch.train --full --steps 32 \
+      --diloco-pods 2 --inner-steps 8 --compress int8 --constellation \
+      --seq-len 1024 --batch 8
 
 It runs on the CUDA card unless `--device cpu` is given; with no card and
 the default device it exits with an error rather than fall back.  Weights
 are random, from a seeded generator; data is the synthetic stream of
 `train/data.py`.  It prints the loss trajectory, the supervisor's stats,
-tokens/s, host syncs per step and how many times the flash-attention
+tokens/s, host syncs per step (host drains per round with DiLoCo), the
+ISL wire bytes of an outer sync, and how many times the flash-attention
 kernel was launched (0 on the CPU, where its plain version runs).
 """
 import argparse
+import os
 import tempfile
 import time
 
@@ -19,15 +29,18 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import registry
-from repro_torch.train import (AdamWConfig, DataConfig, FaultTolerantTrainer,
+from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
+                               DiLoCoSupervisor, FaultTolerantTrainer,
                                FTConfig, SyntheticLM, TrainConfig,
-                               init_train_state, make_fused_steps,
-                               make_train_step)
+                               diloco_init, init_train_state,
+                               isl_bytes_per_step, make_diloco_round,
+                               make_fused_steps, make_train_step,
+                               outer_wire_bytes)
+from repro_torch.train.tree import tree_leaves
 
-NOT_PORTED = ("DiLoCo (--diloco-pods, --inner-steps, --compress, "
-              "--constellation), device meshes (--mesh) and the SDC "
-              "injector (--sdc-rate-multiplier) of the JAX launcher are not "
-              "ported yet and not accepted")
+NOT_PORTED = ("device meshes (--mesh, ROADMAP A3b) and the SDC injector "
+              "(--sdc-rate-multiplier, ROADMAP A6) of the JAX launcher are "
+              "not ported yet and not accepted")
 
 
 def build_parser():
@@ -46,9 +59,103 @@ def build_parser():
     ap.add_argument("--drain-every", type=int, default=8,
                     help="metrics-block drain cadence K (1 = per-step host "
                          "loop)")
+    ap.add_argument("--diloco-pods", type=int, default=0,
+                    help="run DiLoCo with this many pods (0 = off)")
+    ap.add_argument("--inner-steps", type=int, default=8,
+                    help="DiLoCo H: local steps between outer syncs")
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="error-feedback compression on the outer wire hop")
+    ap.add_argument("--constellation", action="store_true",
+                    help="derive DiLoCo pod masks from the orbital/ISL/"
+                         "radiation stack (cluster breathing + SEFI/UECC "
+                         "outages) instead of all pods live")
+    ap.add_argument("--round-deadline-s", type=float, default=None,
+                    help="outer-sync deadline; a pod whose cross-pod ISL "
+                         "transfer exceeds it is masked as a straggler "
+                         "(default: auto percentile over the orbit)")
+    ap.add_argument("--round-time-s", type=float, default=None,
+                    help="wall time one DiLoCo round maps to on the orbit "
+                         "(default: period/16)")
+    ap.add_argument("--outage-rate-multiplier", type=float, default=1.0,
+                    help="scale on the measured SEFI+HBM-UECC restart "
+                         "rates feeding the outage model")
+    ap.add_argument("--force-rollback-at", type=int, default=None,
+                    help="force one whole-round rollback at this round "
+                         "(exercises the deterministic replay path)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     return ap
+
+
+def _run_diloco(args, cfg, fns, tcfg, data, device):
+    """DiLoCo rounds under the DiLoCoSupervisor: per-pod rollback on the
+    device, replicated async checkpoints, and (with --constellation) pod
+    masks derived from the orbital/ISL/radiation stack."""
+    dcfg = DiLoCoConfig(n_pods=args.diloco_pods,
+                        inner_steps=args.inner_steps)
+    compress = None if args.compress == "none" else args.compress
+    params = fns.init(torch.Generator().manual_seed(0), cfg, device)
+    window = FTConfig(checkpoint_dirs=()).gnorm_window
+    d_state = diloco_init(params, dcfg, compress=compress,
+                          screen_window=window)
+    rnd = make_diloco_round(cfg, fns, tcfg, dcfg, compress=compress,
+                            data=data, screen_window=window,
+                            supervise=True)
+    wire = outer_wire_bytes(params, compress)
+
+    liveness = None
+    if args.constellation:
+        from repro_torch.core.isl import (ConstellationLinkModel,
+                                          LivenessConfig)
+        liveness = ConstellationLinkModel(cfg=LivenessConfig(
+            n_pods=dcfg.n_pods, outer_wire_bytes=wire,
+            round_time_s=args.round_time_s,
+            round_deadline_s=args.round_deadline_s,
+            outage_rate_multiplier=args.outage_rate_multiplier))
+
+    n_rounds = -(-args.steps // dcfg.inner_steps)
+    forced = ([args.force_rollback_at]
+              if args.force_rollback_at is not None else None)
+    launches0 = flash_attention.launches
+    with tempfile.TemporaryDirectory() as d:
+        # keep=1: a snapshot holds every pod's params, moments and EF
+        ft = FTConfig(checkpoint_dirs=(os.path.join(d, "replica-a"),
+                                       os.path.join(d, "replica-b")),
+                      keep=1)
+        sup = DiLoCoSupervisor(rnd, d_state, dcfg, ft, liveness=liveness)
+        t0 = time.perf_counter()
+        hist = sup.run(n_rounds, forced_rollback_at=forced)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    stats = {k: v for k, v in sup.stats.items() if v}
+
+    acct = isl_bytes_per_step(sum(p.numel() for p in
+                                  tree_leaves(params)),
+                              dcfg.inner_steps, compress)
+    losses = sup.mean_losses
+    print(f"{cfg.name}: DiLoCo {dcfg.n_pods} pods x H={dcfg.inner_steps}, "
+          f"{len(hist)} rounds on {device}, mean pod loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}, stats {stats}")
+    print(f"  ISL wire: {wire/1e6:.2f} MB/pod/outer-sync "
+          f"({args.compress}), {acct['reduction']:.0f}x less pod-axis "
+          f"traffic than sync DP")
+    tokens = (len(hist) * dcfg.n_pods * dcfg.inner_steps * args.batch
+              * args.seq_len)
+    print(f"  {tokens / dt:.0f} tok/s (rounds kept; replays and "
+          f"checkpoints in the wall time) | {sup.stats['drains']} host "
+          f"drains, one per round run ({sup.stats['drains'] - len(hist)} "
+          f"rolled back) | flash-attention kernel launches "
+          f"{flash_attention.launches - launches0}")
+    if liveness is not None:
+        masked = sup.stats["masked_pod_rounds"] / (n_rounds * dcfg.n_pods)
+        print(f"  constellation: round_time {liveness.round_time_s:.0f}s, "
+              f"deadline {liveness.round_deadline_s:.2e}s, "
+              f"{sup.stats['mask_transitions']} mask transitions, "
+              f"{masked:.0%} pod-rounds masked "
+              f"({sup.stats['straggler_pod_rounds']} straggler, "
+              f"{sup.stats['outage_pod_rounds']} outage)")
 
 
 def main(argv=None):
@@ -72,6 +179,9 @@ def main(argv=None):
                                   global_batch=args.batch,
                                   kind=registry.input_kind(args.arch)),
                        device)
+    if args.diloco_pods > 0:
+        _run_diloco(args, cfg, fns, tcfg, data, device)
+        return
     state = init_train_state(torch.Generator().manual_seed(0), cfg, fns,
                              device)
     fused = (make_fused_steps(cfg, fns, tcfg) if args.drain_every > 1

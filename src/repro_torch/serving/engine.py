@@ -20,8 +20,13 @@ submit_seq)) that advances once per decode sub-step, so outputs are the
 same for any decode_block, slot placement, co-batched traffic or KV
 layout (`serving/prng.py` reproduces jax's bits).
 
-Not ported yet: the migration surface (`export_slots` ... `clear_rows`) and
-`swap_params`; the reference's `trace_count()` has no counterpart in eager
+Co-residency: `swap_params` stages new params (cast once, as at
+construction) and applies them at the first moment no request is in
+flight; admissions are held meanwhile, so a request admitted under param
+version v decodes its whole generation on v.
+
+Not ported yet: the migration surface (`export_slots` ... `clear_rows`,
+ROADMAP A4); the reference's `trace_count()` has no counterpart in eager
 PyTorch.
 """
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.models import decode_state as ds
 from repro_torch.sync import no_host_sync
+from repro_torch.train.tree import tree_map, tree_paths
 
 from . import prng
 
@@ -63,6 +69,9 @@ class Request:
     done: bool = False
     # engine-internal: submission order, keys the request's PRNG stream
     _seq: int = -1
+    # engine-internal: params_version the request was admitted (and will
+    # decode its whole generation) under
+    _params_version: int = -1
 
 
 @dataclass(frozen=True)
@@ -109,6 +118,25 @@ class EngineConfig:
                              "(prefix sharing is page-granular)")
 
 
+def check_swap_compatible(old_params, new_params):
+    """Raise unless `new_params` can replace `old_params` in place: the
+    same tree of names, and every leaf of the same shape and dtype (so
+    every kernel runs at the shapes it ran at before).  Both trees must
+    be of the same kind: the engine compares the params it was built
+    from (kept as meta tensors) with the uncast params of a swap."""
+    old, new = tree_paths(old_params), tree_paths(new_params)
+    if list(old) != list(new):
+        raise ValueError(f"swap_params: tree structure mismatch "
+                         f"({sorted(set(old) ^ set(new))} differ)")
+    for name, o in old.items():
+        n = new[name]
+        if tuple(o.shape) != tuple(n.shape) or o.dtype != n.dtype:
+            raise ValueError(
+                f"swap_params: leaf {name} mismatch {tuple(n.shape)}/"
+                f"{n.dtype} != {tuple(o.shape)}/{o.dtype} — a swap must "
+                f"keep every shape and dtype")
+
+
 class ServingEngine:
     """Serves `Request`s on the device that holds `params`."""
 
@@ -116,7 +144,12 @@ class ServingEngine:
         self.model_cfg = cfg
         self.ecfg = ecfg
         self.device = params["embed"].device
+        self._cast = fns.cast_params
+        self._template = tree_map(
+            lambda x: torch.empty_like(x, device="meta"), params)
         self.params = fns.cast_params(params, cfg)
+        self.params_version = 0
+        self._pending_params = None
         self.spec = fns.decode_spec(cfg, self.device)
         if ecfg.page_size:
             self.spec = ds.paged_spec(
@@ -139,7 +172,8 @@ class ServingEngine:
         self.slots: list[Optional[Request]] = [None] * b
         self.queue: list[Request] = []
         self.finished: list[Request] = []
-        self.stats = {"tokens": 0, "host_syncs": 0, "decode_blocks": 0}
+        self.stats = {"tokens": 0, "host_syncs": 0, "decode_blocks": 0,
+                      "swaps": 0}
         # host-side conservative page accounting (paged only): admission
         # reserves worst-case pages per request so the device allocator's
         # free stack never underflows.  device free >= _pool_free >= 0.
@@ -388,6 +422,7 @@ class ServingEngine:
                         "pf_store": np.full((b,), -1, np.int32),
                         "pf_store_n": np.zeros((b,), np.int32)}
             for slot, req, ops in grp:
+                req._params_version = self.params_version
                 tokens[slot, :len(req.prompt)] = req.prompt
                 lens[slot] = len(req.prompt)
                 admit[slot] = True
@@ -448,13 +483,48 @@ class ServingEngine:
                 self.slots[i] = None
                 self._return_pages(i)
 
+    # --- param hot-swap (serving/training co-residency) --------------------
+    def swap_params(self, new_params):
+        """Stage `new_params` as the next params to serve from.
+
+        They must match the names, shapes and dtypes of the params the
+        engine was built from, and are cast as the constructor casts.
+        The swap applies at the next moment no request is in flight
+        (`step` holds admissions while a swap is pending, so active slots
+        drain): a request admitted under version v decodes its whole
+        generation on v.  Applying it is a reference assignment — no
+        cache reset, no device sync.  Staging twice before the swap
+        applies keeps only the newest params.  Returns the version the
+        new params will serve under."""
+        check_swap_compatible(self._template, new_params)
+        self._pending_params = self._cast(new_params, self.model_cfg)
+        self._maybe_apply_swap()
+        return self.params_version + (self._pending_params is not None)
+
+    def _maybe_apply_swap(self):
+        """Apply a staged swap once no generation is in flight."""
+        if self._pending_params is not None and \
+                all(s is None for s in self.slots):
+            self.params = self._pending_params
+            self._pending_params = None
+            self.params_version += 1
+            self.stats["swaps"] += 1
+
     def step(self):
         """Admit new requests, then decode one block for all active slots.
-        Returns the number of active slots decoded this block."""
-        self._fill_slots()
+        Returns the number of active slots decoded this block.
+
+        While a param swap is staged, admission is held so the in-flight
+        generations drain on their own params; the swap applies at the
+        first empty-slot boundary and admission resumes under the new
+        version."""
+        self._maybe_apply_swap()
+        if self._pending_params is None:
+            self._fill_slots()
         n_active = sum(s is not None for s in self.slots)
         if n_active:
             self._decode_block()
+            self._maybe_apply_swap()   # the block may have drained the pool
         return n_active
 
     def run(self, max_steps: int = 10_000):

@@ -41,7 +41,7 @@ def _fsync_dir(path: str):
         os.close(fd)
 
 
-def _host_copy(state):
+def host_copy(state):
     """One copy of every leaf in host memory, made now."""
     return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
 
@@ -94,10 +94,13 @@ def save_async(state, directory: str, step: int, keep: int = 3):
     return save_replicated_async(state, [directory], step, keep)[0]
 
 
-def save_replicated_async(state, directories, step: int, keep: int = 3):
+def save_replicated_async(state, directories, step: int, keep: int = 3,
+                          copy: bool = True):
     """One serialiser thread per replica directory, sharing a single
-    device-to-host copy.  Returns the Threads (join() to wait)."""
-    state = _host_copy(state)
+    device-to-host copy.  Returns the Threads (join() to wait).
+    copy=False: `state` is already a host copy that nobody modifies."""
+    if copy:
+        state = host_copy(state)
     threads = []
     for d in directories:
         t = threading.Thread(target=save, args=(state, d, step, keep))

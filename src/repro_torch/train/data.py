@@ -102,6 +102,8 @@ class SyntheticLM:
                 "labels": toks[..., 1:].contiguous()}
 
     def _steps(self, steps) -> torch.Tensor:
+        if torch.is_tensor(steps):     # already on the device: no copy
+            return steps.to(device=self.device, dtype=torch.int64)
         return torch.as_tensor(np.asarray(steps, dtype=np.int64),
                                device=self.device)
 
@@ -117,7 +119,8 @@ class SyntheticLM:
 
     def batch_block(self, steps) -> dict:
         """Batches for an array of step ids in one pass, leading axes
-        steps.shape (fused K-step blocks use (K,)): elementwise the same
-        arithmetic as `batch_at`, so bit-identical to stacking its
-        batches."""
+        steps.shape (fused K-step blocks use (K,), DiLoCo rounds (n_pods,
+        H)): elementwise the same arithmetic as `batch_at`, so
+        bit-identical to stacking its batches.  `steps` may be a tensor
+        on the pipeline's device, which makes no host-to-device copy."""
         return self._draw(self._steps(steps))

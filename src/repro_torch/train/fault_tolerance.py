@@ -28,7 +28,12 @@ consecutive rollbacks at the same step the spike thresholds widen by
 
 The fault injector is any object with the reference `SDCInjector`'s
 `maybe_inject(params, forced_events=...) -> (params, n)`; the injector
-itself and the DiLoCo supervisor wait for later slices.
+itself waits for a later slice (ROADMAP A6).
+
+`DiLoCoSupervisor` runs DiLoCo rounds (train/diloco.py) with pod masks
+from the constellation, per-pod rollback on the device, whole-round
+rollback with bitwise replay verification, replicated checkpoints and a
+publisher for co-resident serving.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
+from .data import pod_step_grid
+from .tree import tree_map
 
 
 @dataclass
@@ -364,3 +371,240 @@ class FaultTolerantTrainer:
             self._maybe_checkpoint(step, step + k)
         self.join_checkpoints()
         return history
+
+
+def drain(metrics: dict) -> dict:
+    """Device metrics -> numpy, in one device-to-host transfer: every
+    tensor goes through float32 (exact for the f32 losses, bool flags and
+    0/1 masks the rounds return) and comes back at its own dtype."""
+    names = list(metrics)
+    flat = torch.cat([metrics[n].float().reshape(-1) for n in names])
+    flat = flat.cpu().numpy()
+    out, at = {}, 0
+    for n in names:
+        t = metrics[n]
+        part = flat[at:at + t.numel()].reshape(tuple(t.shape))
+        at += t.numel()
+        out[n] = part.astype(bool) if t.dtype == torch.bool else part
+    return out
+
+
+class DiLoCoSupervisor:
+    """Constellation-in-the-loop DiLoCo supervisor.  Per round it:
+      1. derives the pod liveness mask from the orbital/ISL/radiation
+         state (a `repro_torch.core.isl.ConstellationLinkModel`; None =
+         all pods always live) — a pure function of the round id, so a
+         rollback replay regenerates it bitwise;
+      2. runs one round (`make_diloco_round(..., supervise=True)`) and
+         drains its (n_pods, H) metrics block — the one host sync;
+      3. relies on the round's per-pod rollback on the device: a flagged
+         pod was already excluded from the outer average, re-broadcast
+         and had its EF residual, moments and screen reset — the host
+         only does the bookkeeping (DetectionPolicy's livelock handling);
+      4. escalates to a whole-round rollback only when the outer state is
+         suspect (`outer_ok` False) or a rollback is forced: restores the
+         host snapshot, truncates the history back to the snapshot round
+         and verifies the replayed rounds' losses bitwise against the
+         truncated tail;
+      5. snapshots on the checkpoint cadence: one device-to-host copy,
+         then replicated background writes (`save_replicated_async`);
+      6. with a `publisher` (train/publish.py:ParamPublisher), stages the
+         outer params after every successful round and releases them to
+         the serving sink once the snapshot watermark (plus the
+         publisher's holdback) has passed them.
+    """
+
+    def __init__(self, round_fn, d_state, dcfg, ft: FTConfig,
+                 liveness=None, grid_fn=None, publisher=None):
+        self.round_fn = round_fn
+        self.d_state = d_state
+        self.dcfg = dcfg
+        self.ft = ft
+        self.liveness = liveness
+        self.publisher = publisher
+        self.device = d_state["step"].device
+        self.grid_fn = grid_fn or (lambda r: torch.as_tensor(
+            pod_step_grid(r, dcfg.n_pods, dcfg.inner_steps),
+            device=self.device))
+        self.stats = {
+            "drains": 0, "rollbacks": 0, "pod_rollbacks": 0,
+            "masked_pod_rounds": 0, "straggler_pod_rounds": 0,
+            "outage_pod_rounds": 0, "mask_transitions": 0,
+            "checkpoints": 0, "replay_verified_rounds": 0,
+            "replay_mismatches": 0, "sdc_detected": 0,
+            "threshold_widenings": 0}
+        self.policy = DetectionPolicy(ft, self.stats)
+        self.history = []            # one dict per completed round
+        self.round = 0
+        self._outer_consec = 0       # consecutive outer-suspect rollbacks
+        self._last_outer_round = None
+        self._replayed_until = 0     # rounds below this are replays
+        self._ckpt_threads = []
+        self._snap_round = 0
+        self._snap = ckpt.host_copy(d_state)
+        self._save_replicated()
+
+    @property
+    def mean_losses(self):
+        return [h["loss"] for h in self.history]
+
+    @property
+    def verified_round(self):
+        """The publication watermark: rounds at or below the newest host
+        snapshot can never be rolled back again."""
+        return self._snap_round
+
+    def _to_device(self, host_state):
+        return tree_map(lambda t: t.to(self.device), host_state)
+
+    def _save_replicated(self):
+        for t in self._ckpt_threads:   # bound thread pileup to one cadence
+            t.join()
+        self._ckpt_threads = ckpt.save_replicated_async(
+            self._snap, self.ft.checkpoint_dirs, int(self._snap["step"]),
+            self.ft.keep, copy=False)
+        self.stats["checkpoints"] += len(self.ft.checkpoint_dirs)
+
+    def _mask_for(self, r: int):
+        if self.liveness is None:
+            return np.ones(self.dcfg.n_pods, np.float32), None
+        return self.liveness.mask_at(r)
+
+    def _whole_round_rollback(self, expected: dict):
+        """Restore the snapshot; stash the truncated history tail so the
+        deterministic replay can be verified against it."""
+        self.stats["rollbacks"] += 1
+        self._replayed_until = max(self._replayed_until, self.round)
+        for h in self.history[self._snap_round:]:
+            expected[h["round"]] = (h["loss_bytes"], h["thresholds"])
+        del self.history[self._snap_round:]
+        self.d_state = self._to_device(self._snap)
+        self.round = self._snap_round
+        if self.publisher is not None:
+            self.publisher.on_rollback(self.round)
+
+    def restore_from_checkpoint(self):
+        """Restart-class (SEFI/UECC) recovery: the newest verifiable
+        replica wins, the round counter follows the restored step."""
+        for t in self._ckpt_threads:
+            t.join()
+        step, state = ckpt.restore_latest(self._snap,
+                                          self.ft.checkpoint_dirs)
+        self._snap = state
+        self._snap_round = int(step) // self.dcfg.inner_steps
+        self.d_state = self._to_device(state)
+        self.round = self._snap_round
+        del self.history[self._snap_round:]
+        if self.publisher is not None:
+            self.publisher.on_rollback(self.round)
+        return self._snap_round
+
+    def run(self, n_rounds: int, forced_rollback_at=None, on_round=None):
+        """Run to `n_rounds`, deriving masks per round.
+        forced_rollback_at: round ids at which a whole-round rollback is
+        forced once.  on_round(self) is called after every drain —
+        success or rollback — which is where a co-resident serving engine
+        pumps its queue (launch/coserve.py)."""
+        forced = set(forced_rollback_at or ())
+        expected = {}                 # round -> stashed (loss_bytes, thr)
+        n_pods = self.dcfg.n_pods
+        snap_every = max(1, self.ft.checkpoint_every
+                         // self.dcfg.inner_steps)
+        while self.round < n_rounds:
+            r = self.round
+            mask_np, info = self._mask_for(r)
+            thr = (self.policy.loss_threshold, self.policy.gnorm_threshold)
+            self.d_state, metrics = self.round_fn(
+                self.d_state, self.grid_fn(r),
+                torch.as_tensor(mask_np, dtype=torch.float32,
+                                device=self.device),
+                torch.tensor(thr, dtype=torch.float32, device=self.device))
+            metrics = drain(metrics)            # the one sync per round
+            self.stats["drains"] += 1
+
+            outer_ok = bool(metrics.get("outer_ok", True))
+            if not outer_ok or r in forced:
+                forced.discard(r)
+                if not outer_ok:
+                    # counted here, not only by DetectionPolicy: per-pod
+                    # detections interleaved between successive outer
+                    # detections during replay reset its counter
+                    self._outer_consec = (self._outer_consec + 1
+                                          if r == self._last_outer_round
+                                          else 1)
+                    self._last_outer_round = r
+                    if self._outer_consec > self.ft.max_rollbacks_per_step:
+                        raise RuntimeError(
+                            f"persistent outer-state corruption at round "
+                            f"{r} after {self._outer_consec - 1} "
+                            "rollbacks: replay is deterministic, so this "
+                            "is divergence, not transient SDC")
+                    self.policy.on_detection(f"round {r}", "non-finite")
+                self._whole_round_rollback(expected)
+                if on_round is not None:
+                    on_round(self)
+                continue
+
+            pod_bad = metrics.get("pod_bad", np.zeros(n_pods, bool))
+            nonfinite = metrics["nonfinite"]
+            if r >= self._replayed_until:
+                # replays of counted rounds trip the same screens again:
+                # count (and advance the livelock policy on) fresh
+                # evidence only
+                for p in np.nonzero(pod_bad)[0]:
+                    self.stats["pod_rollbacks"] += 1
+                    self.policy.on_detection(
+                        f"pod {int(p)}",
+                        "non-finite" if nonfinite[p].any() else "spike")
+
+            alive = metrics.get("pod_alive", mask_np)
+            loss = metrics["loss"]
+            # flagged pods' rows were excluded from the outer state, so
+            # they are excluded from the recorded mean too
+            good = ~pod_bad
+            loss_mean = (float(loss[good].mean()) if good.any()
+                         else float("nan"))
+            stash = expected.pop(r, None)
+            if stash is not None and stash[1] == thr:
+                self.stats["replay_verified_rounds"] += 1
+                if stash[0] != loss.tobytes():
+                    self.stats["replay_mismatches"] += 1
+            self.history.append({
+                "round": r, "loss": loss_mean,
+                "alive": np.asarray(alive, np.float32),
+                "straggler": (int(info["straggler"].sum())
+                              if info is not None else 0),
+                "outage": (int(info["outage"].sum())
+                           if info is not None else 0),
+                "loss_bytes": loss.tobytes(), "thresholds": thr})
+            self.round = r + 1
+            if self.publisher is not None:
+                # a device-to-device copy, staged before the next round
+                self.publisher.on_round_complete(self.round, self.d_state)
+            if self.round % snap_every == 0:
+                self._snap = ckpt.host_copy(self.d_state)
+                self._snap_round = self.round
+                self._save_replicated()
+            if self.publisher is not None:
+                self.publisher.advance(self.round, self._snap_round)
+            if on_round is not None:
+                on_round(self)
+        for t in self._ckpt_threads:
+            t.join()
+        self._finalize_mask_stats()
+        return self.history
+
+    def _finalize_mask_stats(self):
+        """Mask accounting from the (rollback-truncated) history: replayed
+        rounds must not double-count, so these are derived, not summed."""
+        n_pods = self.dcfg.n_pods
+        alive = np.array([h["alive"] for h in self.history]) \
+            if self.history else np.zeros((0, n_pods), np.float32)
+        self.stats["masked_pod_rounds"] = int(
+            (n_pods - alive.sum(axis=1)).sum())
+        self.stats["straggler_pod_rounds"] = sum(h["straggler"]
+                                                 for h in self.history)
+        self.stats["outage_pod_rounds"] = sum(h["outage"]
+                                              for h in self.history)
+        self.stats["mask_transitions"] = int(
+            (alive[1:] != alive[:-1]).sum()) if len(alive) > 1 else 0

@@ -350,6 +350,7 @@ def test_train_cli_default_device_refuses_without_a_card():
 
 
 def test_train_cli_refuses_unported_flags():
-    proc = _train_cli("--device", "cpu", "--diloco-pods", "2")
-    assert proc.returncode != 0
-    assert "unrecognized arguments: --diloco-pods" in proc.stderr
+    for flag in ("--mesh", "--sdc-rate-multiplier"):
+        proc = _train_cli("--device", "cpu", flag, "2")
+        assert proc.returncode != 0
+        assert f"unrecognized arguments: {flag}" in proc.stderr
