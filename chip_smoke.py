@@ -4,6 +4,7 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --phase 2c   # phases 1 and 2c only, no result line
   python3 chip_smoke.py --phase 8    # phases 1 and 8-10 only, no result line
+  python3 chip_smoke.py --phase 11   # phases 1 and 11-13 only, no result line
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    src/repro_torch/kernels/{decode_attention,flash_attention,rglru_scan}/
@@ -117,16 +118,48 @@
 10. Reference: the micro DiLoCo config (2 layers, d 32, head_dim 64,
    vocab 256; 2 pods x H 4, int8), f32, 2 rounds on the card against the
    CPU: losses and global params within 1e-3.
+11. Serving plane: suncatcher-lm-100m at full width in bf16 (random
+   weights from seed 0, the tied embedding scaled by 0.1 so that every
+   token depends on the context), 3 pods of 16 slots behind a
+   ConstellationRouter, max_len 512, decode_block 8; 48 requests of phase
+   3's prompt mix, 32 new tokens each, greedy and T 0.7 alternating,
+   arriving 4 per router tick; the chaos schedule "2:1:3,10:1:3" plus pods
+   0 and 2 struck together at tick 6 for 2 ticks.  Run dense, paged (page
+   16, half-size pool, prefix cache 8) and as the full-drain plane (no
+   replication).  Each: zero drops and the outage contract (a pointer
+   flip where replicating, a rebalance), every request's tokens bitwise
+   equal to one engine serving all 48 alone (so paged == dense), B1 or B2
+   launched n_layers x sub-steps times, row_wire_bytes equal to the bytes
+   of one row the engine holds and the replicated bytes equal to its
+   prediction.  Prints tok/s, the failover stalls (p50, max), standby
+   syncs, bytes replicated, peak memory and the launches.  One more
+   dense plane of the first 12 requests under torch.profiler: device
+   busy share, top kernels, and the device time of B1, the GEMMs and the
+   index and gather kernels.
+12. Mixed serving plane: recurrentgemma-2b (bf16 params made anew from
+   seed 0, each pod its own copy) and suncatcher-lm-100m, 2 pods each of
+   8 slots, max_len 512; 16 requests round-robin over the arch groups, 32
+   new tokens; the busiest pod struck at tick 2 for 3 ticks.  Zero drops, no
+   session moves between arch groups, a pointer flip in the carry group,
+   each request bitwise equal to its arch's engine serving it alone; B4
+   launched 18 times per recurrentgemma prefill call, B1 12 (dh 64) and
+   8 (dh 256) times per sub-step of its group, each arch's B1 launches
+   counted around its engines' steps.
+13. Reference: a micro mixed plane (the reduced demo LM at head_dim 64,
+   paged, and recurrentgemma reduced at d_model 256), f32, 2 + 2 pods, an
+   outage schedule, on the card and on the CPU: tokens and every
+   plane_stats() counter equal.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit, and before that one JSON line listing the kernels
 (B1 at dh 64, B2, B3, B4 at the serve and the long prefill shapes, and
 B1 at dh 256 in two rows: the serve run's rings and full rings) with
-their launches on their main paths (B1's dh-64 row phases 3 and 9; B3's
-phases 5, 8 and 9; B4's and B1's dh-256 rows phase 6's 16-slot runs and
-its long runs), errors, times and bounds; B4's rows also name their copy
-path.
+their launches on their main paths (B1's dh-64 row phases 3, 9, 11 and
+12; B2's phases 3 and 11; B3's phases 5, 8 and 9; B4's serve row and
+B1's dh-256 serve-rings row phase 6's 16-slot runs and phase 12; the
+long rows phase 6's long runs), errors, times and bounds; B4's rows also
+name their copy path.
 """
 import json
 import os
@@ -147,6 +180,11 @@ PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
             "float32": 67e12}      # f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 H, HKV, DH = 12, 4, 64
+
+
+def phase(title):
+    """A phase's header, with the wall clock."""
+    print(f"{title} [{time.strftime('%H:%M:%S')}]", flush=True)
 
 
 def fail(msg):
@@ -1552,6 +1590,419 @@ def diloco_reference(torch):
           flush=True)
 
 
+PLANE_SCHEDULE = "2:1:3,10:1:3,6:0:2,6:2:2"
+
+
+def plane_prompts(np, vocab, n_req, seed):
+    """Phase 3's prompt mix: 4-200 tokens, half behind one of two shared
+    32/48-token heads.  The lengths come from a generator of their own,
+    so a plane schedules the same way at any vocab."""
+    lens = np.random.default_rng(seed).integers(4, 153, n_req)
+    rng = np.random.default_rng(seed + 1)
+    heads = [rng.integers(0, vocab, n).astype(np.int32) for n in (32, 48)]
+    out = []
+    for i, n in enumerate(lens):
+        tail = rng.integers(0, vocab, int(n)).astype(np.int32)
+        out.append(np.concatenate([heads[i % 2], tail]) if i % 4 < 2
+                   else tail)
+    return out
+
+
+def context_params(torch, fns, cfg, dev, seed=0):
+    """Random params from a seed with the tied embedding scaled by 0.1: at
+    the init scale the embedding dominates the residual stream and a
+    random model repeats its input token, so its tokens would not show a
+    corrupted migration; scaled, every token depends on the context."""
+    params = fns.init(torch.Generator().manual_seed(seed), cfg, dev)
+    params["embed"].mul_(0.1)
+    return params
+
+
+def outage_contract(plane, done, n_req, **expect):
+    """The launchers' zero-drop outage contract, as a check."""
+    from repro_torch.serving import check_forced_outage_contract
+    try:
+        check_forced_outage_contract(plane, done, n_req, **expect)
+    except SystemExit as err:
+        fail(f"outage contract: {err}")
+
+
+def drive_plane(plane, reqs, per_tick):
+    """Submit `per_tick` requests before each router tick until all are
+    in, then run the plane dry; returns the finished requests."""
+    pending = list(reqs)
+    steps = 0
+    while pending or plane.queue or any(e.queue for e in plane.engines) \
+            or any(s is not None for s in plane.slots):
+        for r in pending[:per_tick]:
+            plane.submit(r)
+        del pending[:per_tick]
+        plane.step()
+        steps += 1
+        check(steps < 10_000, "the plane did not drain")
+    return plane.finished
+
+
+def spy_moves(plane):
+    """Record (request arch, destination arch, pointer flip) of every
+    session the router moves."""
+    moves = []
+    relocate = plane._relocate
+
+    def spy(sess, dst, dslot, *, flip, failover=True):
+        moves.append((sess.req.arch or plane.engines[0].model_cfg.name,
+                      plane.engines[dst].model_cfg.name, flip))
+        return relocate(sess, dst, dslot, flip=flip, failover=failover)
+    plane._relocate = spy
+    return moves
+
+
+def row_bytes(cache, batch):
+    """Bytes of one slot row of a dense state tree (the wire format)."""
+    from repro_torch.models.decode_state import _leaves
+    return sum(x.numel() // batch * x.element_size() for x in _leaves(cache))
+
+
+def plane_phase(torch):
+    """The demo LM's serving plane at full width (phase 11): 3 pods of 16
+    slots behind a ConstellationRouter, 48 requests arriving 4 a tick,
+    under a chaos schedule; dense, paged and full-drain.  Returns (B1
+    launches over the dense and full-drain planes, B2 launches over the
+    paged plane)."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.models import registry
+    from repro_torch.serving import (ConstellationRouter, EngineConfig,
+                                     GridConfig, Request, ServingEngine,
+                                     parse_outage_spec)
+    dev = torch.device("cuda")
+    cfg = registry.get_config("suncatcher-lm-100m")
+    fns = registry.model_fns(cfg)
+    params = context_params(torch, fns, cfg, dev)
+    pods, slots, max_len, block, n_req, max_new = 3, 16, 512, 8, 48, 32
+    prompts = plane_prompts(np, cfg.vocab_size, n_req, 0)
+    check(min(map(len, prompts)) >= 4 and max(map(len, prompts)) <= 200,
+          "prompt lengths outside 4-200")
+
+    def reqs():
+        return [Request(uid=i, prompt=p, max_new_tokens=max_new,
+                        temperature=0.0 if i % 2 == 0 else 0.7)
+                for i, p in enumerate(prompts)]
+
+    def ecfg(page_size):
+        return EngineConfig(
+            max_batch=slots, max_len=max_len, decode_block=block,
+            page_size=page_size,
+            pool_pages=slots * max_len // 16 // 2 if page_size else None,
+            prefix_cache=8 if page_size else 0)
+
+    # the streams every plane must give: one engine serving them alone
+    alone = ServingEngine(cfg, fns, params, ecfg(0))
+    for r in reqs():
+        alone.submit(r)
+    want = {r.uid: r.generated for r in alone.run()}
+    del alone
+    check(len(want) == n_req and all(len(v) == max_new
+                                     for v in want.values()),
+          "the single engine did not complete every request")
+    distinct = sorted(len(set(v)) for v in want.values())
+    print(f"  one engine alone: {n_req} requests x {max_new} tokens; "
+          f"distinct tokens per stream {distinct[0]}-{distinct[-1]} "
+          f"(median {distinct[len(distinct) // 2]})", flush=True)
+
+    def run_plane(page_size, replicate, label, n=n_req):
+        """One plane run of the first `n` requests, with every check;
+        returns (wall s, launches)."""
+        engines = [ServingEngine(cfg, fns, params, ecfg(page_size))
+                   for _ in range(pods)]
+        plane = ConstellationRouter(
+            engines, forced_outage=parse_outage_spec(PLANE_SCHEDULE),
+            grid=GridConfig(replicate=replicate))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_attention.launches = 0
+        paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        done = drive_plane(plane, reqs()[:n], per_tick=4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = (decode_attention.launches, paged_decode_attention.launches)
+        s = plane.plane_stats()
+        e = s["engines"]
+        outage_contract(plane, done, n, expect_pointer_flip=replicate,
+                        expect_rebalance=True)
+        check(all(len(r.generated) == max_new for r in done),
+              f"{label} plane: a request stopped short")
+        bad = [r.uid for r in done if r.generated != want[r.uid]]
+        check(not bad, f"{label} plane: requests {bad[:8]} differ from one "
+              f"engine serving them alone")
+        sub = e["decode_blocks"] * block
+        need = ((0, cfg.n_layers * sub) if page_size
+                else (cfg.n_layers * sub, 0))
+        check(got == need, f"{label} plane: launches (B1, B2) {got} != "
+              f"{need} (n_layers x {sub} sub-steps)")
+        full_b, per_pos_b, carry_b = engines[0].spec.row_wire_bytes(max_len)
+        if page_size == 0:
+            check(full_b == row_bytes(engines[0].cache, slots),
+                  f"row_wire_bytes {full_b} != the bytes of one row the "
+                  f"engine holds {row_bytes(engines[0].cache, slots)}")
+        if replicate:
+            n_syncs = s["full_bytes_equiv"] // full_b
+            check(s["replicated_bytes"] == carry_b * n_syncs
+                  + per_pos_b * s["replicated_rows"] > 0,
+                  f"{label} plane: replicated bytes {s['replicated_bytes']}"
+                  f" != the row_wire_bytes prediction")
+        else:
+            check(e["standby_syncs"] == 0 and s["replicated_bytes"] == 0,
+                  "the full-drain plane replicated")
+        stalls = sorted(plane.failover_stalls)
+        extra = ""
+        if page_size:
+            ps = [x.page_stats() for x in engines]
+            check(all(p["device_live"] == p["pool_pages"] - p["host_free"]
+                      for p in ps), "paged plane: pages leaked")
+            extra = (f" | pool {ps[0]['pool_pages']} pages per pod, "
+                     f"{e['admission_stalls']} admission stalls, "
+                     f"{e['prefix_hits']} prefix hits")
+        print(f"  {label} plane ({pods} pods x {slots} slots, {n} "
+              f"requests, '{PLANE_SCHEDULE}'): {e['tokens']} tokens in "
+              f"{dt:.3f} s = "
+              f"{e['tokens'] / dt:.1f} tok/s | {s['pointer_flips']} pointer "
+              f"flips + {s['full_migrations']} full drains "
+              f"({s['migrated_slots']} failed over), "
+              f"{s['deferred_slot_migrations']} deferrals, "
+              f"{s['rebalanced_slots']} rebalanced, {s['rejoins']} rejoins | "
+              f"failover stalls {len(stalls)}: p50 "
+              f"{stalls[len(stalls) // 2] * 1e3 if stalls else 0:.2f} ms, "
+              f"max {stalls[-1] * 1e3 if stalls else 0:.2f} ms | "
+              f"{e['standby_syncs']} standby syncs, "
+              f"{s['replicated_bytes']} bytes replicated "
+              f"({s['full_bytes_equiv']} as whole rows) | launches B1 "
+              f"{got[0]} B2 {got[1]} | peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+              + extra, flush=True)
+        return dt, got
+
+    launches = {}
+    for page_size, replicate, label in ((0, True, "dense"),
+                                        (16, True, "paged"),
+                                        (0, False, "full-drain")):
+        launches[label] = run_plane(page_size, replicate, label)[1]
+    # a shorter run under the profiler (its trace takes the host ~15 s
+    # per second of wall to process): 12 requests, ticks 0-5
+    profile_window(torch, "dense plane, 12 requests",
+                   lambda: run_plane(0, True, "dense (profiled)", n=12)[0],
+                   watch=("decode_split_kernel", "decode_merge_kernel",
+                          "nvjet", "index", "gather"))
+    print("  dense, paged and full-drain planes == one engine alone, every "
+          "request bitwise; zero drops", flush=True)
+    return (launches["dense"][0] + launches["full-drain"][0],
+            launches["paged"][1])
+
+
+def mixed_plane_phase(torch):
+    """A mixed plane at full width (phase 12): suncatcher-lm-100m and
+    recurrentgemma-2b, 2 pods of 8 slots each, 16 requests round-robin
+    over the arch groups, the busiest pod struck at tick 2.  Returns the
+    launches (B1 at dh 64, B1 at dh 256, B4) of the plane's run, B1's
+    counted per arch around each engine's step."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    from repro_torch.models import registry
+    from repro_torch.serving import (ConstellationRouter, EngineConfig,
+                                     Request, ServingEngine,
+                                     parse_outage_spec)
+    from repro_torch.train.tree import tree_map
+    dev = torch.device("cuda")
+    lm_cfg = registry.get_config("suncatcher-lm-100m")
+    rg_cfg = registry.get_config("recurrentgemma-2b")
+    lm_fns, rg_fns = registry.model_fns(lm_cfg), registry.model_fns(rg_cfg)
+    lm = context_params(torch, lm_fns, lm_cfg, dev)
+    t0 = time.perf_counter()
+    # the cast head is embed.T, so it carries the embedding's scale
+    rg_params = rg_fns.cast_params(context_params(torch, rg_fns, rg_cfg, dev),
+                                   rg_cfg)
+    torch.cuda.synchronize()
+    print(f"  recurrentgemma-2b params from seed 0, cast to bf16: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pods, slots, max_len, block, n_req, max_new = 2, 8, 512, 8, 16, 32
+    ecfg = EngineConfig(max_batch=slots, max_len=max_len, decode_block=block)
+    n_rec = 2 * rg_cfg.n_groups + rg_cfg.n_tail_rec
+    builds = {lm_cfg.name: (lm_cfg, lm_fns), rg_cfg.name: (rg_cfg, rg_fns)}
+    # each pod holds its own copy of its arch's params
+    copies = {lm_cfg.name: [lm] + [tree_map(torch.clone, lm)
+                                   for _ in range(pods - 1)],
+              rg_cfg.name: [rg_params] + [tree_map(torch.clone, rg_params)
+                                          for _ in range(pods - 1)]}
+    torch.cuda.synchronize()
+    print(f"  params on the card: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated ({pods} pods per arch, a copy each)", flush=True)
+    order = (rg_cfg.name, lm_cfg.name)
+    engines = [ServingEngine(*builds[a], copies[a][i], ecfg)
+               for a in order for i in range(pods)]
+    plane = ConstellationRouter(engines,
+                                forced_outage=parse_outage_spec("2:*:3"))
+    moves = spy_moves(plane)
+    prefills = []
+    b1_arch = dict.fromkeys(order, 0)   # B1 launches inside each arch's steps
+    for e in engines:
+        def counted_step(_step=e.step, _arch=e.model_cfg.name):
+            n0 = decode_attention.launches
+            out = _step()
+            b1_arch[_arch] += decode_attention.launches - n0
+            return out
+        e.step = counted_step
+        if e.model_cfg is rg_cfg:
+            fill = e.spec.prefill
+
+            def counted(*a, _fill=fill, **k):
+                prefills.append(1)
+                return _fill(*a, **k)
+            e.spec.prefill = counted
+    lens = np.random.default_rng(2).integers(4, 201, n_req)
+    reqs = []
+    for i, n in enumerate(lens):
+        arch = order[i % 2]
+        reqs.append(Request(
+            uid=i, prompt=np.random.default_rng(100 + i).integers(
+                0, builds[arch][0].vocab_size, int(n)).astype(np.int32),
+            max_new_tokens=max_new,
+            temperature=0.0 if (i // 2) % 2 == 0 else 0.7, arch=arch))
+    for r in reqs:
+        plane.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_attention.launches = 0
+    rglru_scan_fwd.launches = 0
+    b1_arch.update(dict.fromkeys(order, 0))
+    t0 = time.perf_counter()
+    done = plane.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    b1, b4 = decode_attention.launches, rglru_scan_fwd.launches
+    s = plane.plane_stats()
+    outage_contract(plane, done, n_req, expect_pointer_flip=True)
+    check(all(len(r.generated) == max_new for r in done),
+          "mixed plane: a request stopped short")
+    check(all(a == b for a, b, _ in moves),
+          f"a session moved between arch groups: {moves}")
+    carry_flips = sum(flip for a, _, flip in moves if a == rg_cfg.name)
+    check(carry_flips >= 1, f"no pointer flip in the carry group: {moves}")
+    blocks = {a: sum(e.stats["decode_blocks"] for e in engines
+                     if e.model_cfg.name == a) for a in order}
+    b1_lm, b1_rg = b1_arch[lm_cfg.name], b1_arch[rg_cfg.name]
+    need = (lm_cfg.n_layers * block * blocks[lm_cfg.name],
+            rg_cfg.n_groups * block * blocks[rg_cfg.name])
+    check(b1 == b1_lm + b1_rg,
+          f"mixed plane: {b1 - b1_lm - b1_rg} B1 launches outside the "
+          f"engines' steps")
+    check((b1_lm, b1_rg) == need and b4 == n_rec * len(prefills),
+          f"mixed plane: launches B1 dh 64 {b1_lm}, dh 256 {b1_rg} != "
+          f"{need} (layers x {block} x decode blocks) or B4 {b4} != "
+          f"{n_rec} x {len(prefills)} prefill calls")
+    print(f"  mixed plane ({pods} + {pods} pods x {slots} slots, '2:*:3'): "
+          f"{s['engines']['tokens']} tokens in {dt:.3f} s = "
+          f"{s['engines']['tokens'] / dt:.1f} tok/s | {s['pointer_flips']} "
+          f"pointer flips ({carry_flips} in the carry group) + "
+          f"{s['full_migrations']} full drains, {len(moves)} moves, none "
+          f"across groups | {s['engines']['standby_syncs']} standby syncs, "
+          f"{s['replicated_bytes']} bytes replicated | launches B1 dh 64 "
+          f"{b1_lm}, B1 dh 256 {b1_rg}, B4 {b4} ({len(prefills)} prefill "
+          f"calls) | peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB", flush=True)
+    for a in order:
+        cfg, fns = builds[a]
+        alone = ServingEngine(cfg, fns, copies[a][0], ecfg)
+        mine = [r for r in done if r.arch == a]
+        for r in mine:
+            one = Request(uid=r.uid, prompt=r.prompt,
+                          max_new_tokens=max_new, temperature=r.temperature)
+            one._seq = r._seq
+            alone.submit(one)
+        want = {r.uid: r.generated for r in alone.run()}
+        bad = [r.uid for r in mine if r.generated != want[r.uid]]
+        check(not bad, f"mixed plane: {a} requests {bad} differ from one "
+              f"engine serving them alone")
+    print("  every request == its arch's engine serving it alone, bitwise",
+          flush=True)
+    return b1_lm, b1_rg, b4
+
+
+def plane_reference(torch):
+    """A micro mixed plane (phase 13): the reduced demo LM (head_dim 64)
+    paged and recurrentgemma reduced at d_model 256, f32, 2 + 2 pods,
+    chaos; on the card and on the CPU: tokens and every plane counter
+    equal."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.serving import (ConstellationRouter, EngineConfig,
+                                     Request, ServingEngine,
+                                     parse_outage_spec)
+    from repro_torch.train.tree import tree_map
+    cfgs = (registry.get_reduced_config("suncatcher-lm-100m",
+                                        compute_dtype="float32", head_dim=64),
+            registry.get_reduced_config("recurrentgemma-2b", d_model=256,
+                                        compute_dtype="float32"))
+    cpu = [registry.model_fns(c).init(torch.Generator().manual_seed(1), c,
+                                      "cpu") for c in cfgs]
+    devices = ("cpu", "cuda")
+    out = {}
+    for d in devices:
+        engines = []
+        for cfg, p, page in zip(cfgs, cpu, (16, 0)):
+            ecfg = EngineConfig(max_batch=3, max_len=64, decode_block=4,
+                                page_size=page)
+            engines += [ServingEngine(cfg, registry.model_fns(cfg),
+                                      tree_map(lambda x: x.to(d), p), ecfg)
+                        for _ in range(2)]
+        plane = ConstellationRouter(
+            engines, forced_outage=parse_outage_spec("2:*:3,6:2:2"))
+        rng = np.random.default_rng(5)
+        for i in range(10):
+            cfg = cfgs[i % 2]
+            plane.submit(Request(
+                uid=i, prompt=rng.integers(0, cfg.vocab_size, int(
+                    rng.integers(3, 30))).astype(np.int32),
+                max_new_tokens=20, temperature=0.0 if i % 4 < 2 else 0.8,
+                arch=cfg.name))
+        done = plane.run()
+        out[d] = {r.uid: r.generated for r in done}, plane.plane_stats()
+    (tc, sc), (tg, sg) = (out[d] for d in devices)
+    check(len(tc) == 10 and sc["migrated_slots"] >= 1,
+          f"micro plane: {len(tc)} requests done, "
+          f"{sc['migrated_slots']} slots moved")
+    check(tg == tc, "micro plane: card and CPU tokens differ")
+    diff = sorted(k for k in sc if sc[k] != sg.get(k))
+    check(not diff, f"micro plane: card and CPU counters differ: {diff}")
+    print(f"  micro mixed plane f32 (paged LM + RG-LRU, '2:*:3,6:2:2'): "
+          f"card == CPU tokens and every plane_stats() counter "
+          f"({sc['pointer_flips']} flips, {sc['full_migrations']} drains, "
+          f"{sc['rebalanced_slots']} rebalanced)", flush=True)
+
+
+def plane_paths(torch):
+    """Phases 11-13.  Returns (B1 dh-64 launches, B2 launches, B1 dh-256
+    launches, B4 launches) over the planes' runs."""
+    phase("phase 11: serving plane, suncatcher-lm-100m (full width, bf16, "
+          "3 pods, chaos)")
+    b1, b2 = plane_phase(torch)
+    torch.cuda.empty_cache()
+    phase("phase 12: mixed serving plane, suncatcher-lm-100m + "
+          "recurrentgemma-2b (full width, bf16)")
+    b1_lm, b1_rg, b4 = mixed_plane_phase(torch)
+    torch.cuda.empty_cache()
+    phase("phase 13: serving plane reference check")
+    plane_reference(torch)
+    check(min(b1, b2, b1_lm, b1_rg, b4) > 0,
+          "a kernel never launched on the serving planes")
+    return b1 + b1_lm, b2, b1_rg, b4
+
+
 def new_paths(torch):
     """Phases 8-10 under deterministic algorithms (the supervisor verifies
     replayed rounds bitwise).  Returns (B3 launches, B1 launches) on the
@@ -1559,15 +2010,14 @@ def new_paths(torch):
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
-        print("phase 8: DiLoCo suncatcher-lm-100m (full width, bf16, 2 pods "
-              "x H 8, int8, constellation)", flush=True)
+        phase("phase 8: DiLoCo suncatcher-lm-100m (full width, bf16, 2 pods "
+              "x H 8, int8, constellation)")
         b3 = diloco_phase(torch)
         torch.cuda.empty_cache()
-        print("phase 9: co-resident DiLoCo + serving (full width)",
-              flush=True)
+        phase("phase 9: co-resident DiLoCo + serving (full width)")
         b3_co, b1 = coserve_phase(torch)
         torch.cuda.empty_cache()
-        print("phase 10: DiLoCo reference check", flush=True)
+        phase("phase 10: DiLoCo reference check")
         diloco_reference(torch)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1581,8 +2031,9 @@ def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
     only_new = argv == ["--phase", "8"]
-    if argv and not (only_2c or only_new):
-        print("usage: chip_smoke.py [--phase 2c | --phase 8]",
+    only_plane = argv == ["--phase", "11"]
+    if argv and not (only_2c or only_new or only_plane):
+        print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1603,7 +2054,7 @@ def main(argv):
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    print("phase 1: build", flush=True)
+    phase("phase 1: build")
     libs = (b12.LIBRARY, b3.LIBRARY, b4.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load) for lib in libs]:
@@ -1638,31 +2089,35 @@ def main(argv):
         new_paths(torch)
         print("phases 8-10 alone: no result line")
         return 0
+    if only_plane:
+        plane_paths(torch)
+        print("phases 11-13 alone: no result line")
+        return 0
     if only_2c:
-        print("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
-              "head_dim 256", flush=True)
+        phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
+              "head_dim 256")
         print(json.dumps({"kernels": rglru_kernel_phase(torch, timer)}))
         print("phase 2c alone: no main path driven, no result line")
         return 0
-    print("phase 2: kernels vs plain versions", flush=True)
+    phase("phase 2: kernels vs plain versions")
     rows = kernel_phase(torch, timer)
-    print("phase 2b: flash-attention kernel vs plain version", flush=True)
+    phase("phase 2b: flash-attention kernel vs plain version")
     rows.append(flash_phase(torch, timer))
-    print("phase 2c: RG-LRU scan kernel vs plain version; B1 at head_dim "
-          "256", flush=True)
+    phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at head_dim "
+          "256")
     rows.extend(rglru_kernel_phase(torch, timer))
 
-    print("phase 3: serve suncatcher-lm-100m (full width, bf16)", flush=True)
+    phase("phase 3: serve suncatcher-lm-100m (full width, bf16)")
     totals = serve_phase(torch)
     rows[0]["launches"], rows[1]["launches"] = totals
     check(all(r["launches"] > 0 for r in rows[:2]),
           "a decode kernel never launched")
 
-    print("phase 4: reference check", flush=True)
+    phase("phase 4: reference check")
     reference_phase(torch)
 
-    print("phase 5: train suncatcher-lm-100m (full width, bf16, seq 1024, "
-          "batch 8)", flush=True)
+    phase("phase 5: train suncatcher-lm-100m (full width, bf16, seq 1024, "
+          "batch 8)")
     # deterministic kernels, without the NaN fill of every fresh
     # allocation (no kernel of the path reads memory it did not write)
     torch.use_deterministic_algorithms(True)
@@ -1676,19 +2131,26 @@ def main(argv):
     check(rows[2]["launches"] > 0, "the flash kernel never launched")
     torch.cuda.empty_cache()
 
-    print("phase 6: serve recurrentgemma-2b (full width, bf16)", flush=True)
+    phase("phase 6: serve recurrentgemma-2b (full width, bf16)")
     (rows[3]["launches"], rows[4]["launches"], rows[5]["launches"],
      rows[6]["launches"]) = rglru_serve_phase(torch)
     check(all(r["launches"] > 0 for r in rows[3:7]),
           "B4 or B1 never launched serving recurrentgemma-2b")
 
-    print("phase 7: recurrentgemma reference check", flush=True)
+    phase("phase 7: recurrentgemma reference check")
     rglru_reference(torch)
     torch.cuda.empty_cache()
 
     b3, b1 = new_paths(torch)
     rows[2]["launches"] += b3
     rows[0]["launches"] += b1
+    torch.cuda.empty_cache()
+
+    b1, b2, b1_256, b4 = plane_paths(torch)
+    rows[0]["launches"] += b1
+    rows[1]["launches"] += b2
+    rows[5]["launches"] += b1_256
+    rows[3]["launches"] += b4
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

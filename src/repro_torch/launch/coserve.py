@@ -16,15 +16,22 @@ rolled back is never served.
       --steps 12 --inner-steps 4 --seq-len 1024 --batch 8 --serve-slots 8 \
       --max-len 512 --requests 16 --max-new-tokens 32 --constellation
 
+Serving plane: --replicas N serves from N engine replicas behind a
+ConstellationRouter; the publisher fans verified outer params out to all
+of them through the router's plane-wide lockstep `swap_params`.
+--serving-constellation routes by the constellation liveness mask (the
+training link model's when the pod counts match), and --force-outage-at
+takes a chaos schedule (serving/chaos.py); in-flight generations must
+fail over, not drop, and the launcher checks that after the run:
+
+  PYTHONPATH=src python -m repro_torch.launch.coserve --device cpu \
+      --steps 16 --replicas 2 --max-new-tokens 24 --force-outage-at 2
+
 It runs on the CUDA card unless `--device cpu` is given; with no card and
-the default device it exits with an error rather than fall back.  The
-reference launcher's router flags (--replicas, --serving-constellation,
---force-outage-at) need the serving plane's router, which is not ported
-(ROADMAP A4): given one, the launcher exits with an error.
+the default device it exits with an error rather than fall back.
 """
 import argparse
 import os
-import sys
 import tempfile
 import time
 
@@ -34,14 +41,14 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import registry
-from repro_torch.serving import EngineConfig, Request, ServingEngine
+from repro_torch.serving import (ConstellationRouter, EngineConfig, Request,
+                                 ServingEngine, check_forced_outage_contract,
+                                 liveness_mask_fn, parse_outage_spec)
 from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
                                DiLoCoSupervisor, FTConfig, ParamPublisher,
                                PublishConfig, SyntheticLM, TrainConfig,
                                diloco_init, make_diloco_round,
                                outer_wire_bytes, snapshot_global_params)
-
-ROUTER_FLAGS = ("--replicas", "--serving-constellation", "--force-outage-at")
 
 
 def run_coserve(sup, eng, requests, n_rounds, *, forced_rollback_at=None,
@@ -52,11 +59,19 @@ def run_coserve(sup, eng, requests, n_rounds, *, forced_rollback_at=None,
     requests and decodes up to `blocks_per_round` blocks; once training
     reaches `n_rounds` the remaining traffic drains.  Publication happens
     inside the supervisor (its ParamPublisher), not here — this loop only
-    moves tokens.  Returns the finished list."""
+    moves tokens.  `eng` may be one ServingEngine or a ConstellationRouter
+    plane: while training runs, the router's liveness tick is pinned to
+    the supervisor's round (a pod masked for training round r is masked
+    for serving while round r trains); for the drain the pin is released,
+    so the router's own ticks advance any repair window.  Returns the
+    finished list."""
     pending = list(requests)
-    cap = eng.ecfg.max_batch
+    # a plane admits across its pods: size the queue to the plane
+    cap = getattr(eng, "n_pods", 1) * eng.ecfg.max_batch
 
     def pump(_sup):
+        if hasattr(eng, "round_override"):
+            eng.round_override = _sup.round
         while pending and len(eng.queue) < cap:
             eng.submit(pending.pop(0))
         for _ in range(blocks_per_round):
@@ -66,6 +81,8 @@ def run_coserve(sup, eng, requests, n_rounds, *, forced_rollback_at=None,
 
     sup.run(n_rounds, forced_rollback_at=forced_rollback_at, on_round=pump)
 
+    if hasattr(eng, "round_override"):
+        eng.round_override = None     # drain on the router's own clock
     steps = 0
     while (pending or eng.queue
            or any(s is not None for s in eng.slots)) and steps < max_steps:
@@ -77,9 +94,7 @@ def run_coserve(sup, eng, requests, n_rounds, *, forced_rollback_at=None,
 
 
 def build_parser():
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog=f"not ported: {', '.join(ROUTER_FLAGS)} (ROADMAP A4)")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="suncatcher-lm-100m",
                     help=f"arch id; ported: {registry.ARCH_IDS}")
     ap.add_argument("--full", action="store_true",
@@ -99,7 +114,20 @@ def build_parser():
                          "publication watermark advances on this cadence")
     ap.add_argument("--serve-slots", type=int, default=2,
                     help="serving engine decode slots (EngineConfig."
-                         "max_batch)")
+                         "max_batch), per replica")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving-pod engine replicas behind the liveness "
+                         "router (1 = a single engine, no router)")
+    ap.add_argument("--serving-constellation", action="store_true",
+                    help="route serving traffic by the constellation "
+                         "liveness mask (the training link model's when "
+                         "the pod counts match)")
+    ap.add_argument("--force-outage-at", type=str, default=None,
+                    help="chaos schedule 'AT[:POD[:TICKS]][,...]': strike "
+                         "pod POD ('*' or omitted = busiest) at router "
+                         "tick AT for TICKS ticks (omitted = rest of "
+                         "run); in-flight generations must fail over, "
+                         "not drop (needs --replicas >= 2)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=64)
@@ -125,18 +153,15 @@ def build_parser():
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    ap = build_parser()
-    for a in argv:
-        if a.split("=")[0] in ROUTER_FLAGS:
-            ap.error(f"{a.split('=')[0]}: the serving plane's router is not "
-                     f"ported (ROADMAP A4); the port co-serves one engine")
-    args = ap.parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          f"available (pass --device cpu to run the plain "
                          f"kernels on the CPU)")
+    if args.force_outage_at is not None and args.replicas < 2:
+        raise SystemExit("--force-outage-at needs --replicas >= 2 (a "
+                         "one-pod plane has nowhere to migrate)")
     if args.arch not in registry.ARCH_IDS:
         raise SystemExit(f"unknown --arch {args.arch!r}; ported: "
                          f"{registry.ARCH_IDS}")
@@ -164,11 +189,33 @@ def main(argv=None):
         liveness = ConstellationLinkModel(cfg=LivenessConfig(
             n_pods=dcfg.n_pods, outer_wire_bytes=outer_wire_bytes(params)))
 
-    # the engine serves the round-0 globals until the first publish, from
-    # its own copy
+    # the engine(s) serve the round-0 globals until the first publish,
+    # from their own copy
     ecfg = EngineConfig(max_batch=args.serve_slots, max_len=args.max_len,
                         decode_block=args.decode_block)
-    eng = ServingEngine(cfg, fns, snapshot_global_params(d_state), ecfg)
+    params0 = snapshot_global_params(d_state)
+    if args.replicas > 1 or args.serving_constellation:
+        mask_fn = None
+        if args.serving_constellation:
+            # the serving twin of the training mask: the same link model
+            # when the pod counts match, so one masked pod silences both
+            if liveness is not None and dcfg.n_pods == args.replicas:
+                serve_model = liveness
+            else:
+                from repro_torch.core.isl import (ConstellationLinkModel,
+                                                  LivenessConfig)
+                serve_model = ConstellationLinkModel(cfg=LivenessConfig(
+                    n_pods=args.replicas,
+                    outer_wire_bytes=outer_wire_bytes(params)))
+            mask_fn = liveness_mask_fn(serve_model)
+        forced = (parse_outage_spec(args.force_outage_at)
+                  if args.force_outage_at is not None else None)
+        eng = ConstellationRouter(
+            [ServingEngine(cfg, fns, params0, ecfg)
+             for _ in range(args.replicas)],
+            mask_fn=mask_fn, forced_outage=forced)
+    else:
+        eng = ServingEngine(cfg, fns, params0, ecfg)
     publisher = ParamPublisher(
         eng.swap_params,
         PublishConfig(publish_every=args.publish_every,
@@ -214,12 +261,26 @@ def main(argv=None):
           f"{publisher.published_round}/{sup.round}), "
           f"{publisher.stats['dropped_rollback']} dropped by rollback, "
           f"{sup.stats['rollbacks']} whole-round rollbacks")
-    s = eng.stats
-    print(f"  serve: {s['tokens'] / dt:.0f} tok/s co-resident, "
-          f"{s['swaps']} live param swaps (engine v{eng.params_version}) | "
-          f"kernel launches: decode attention "
-          f"{decode_attention.launches - b1}, flash attention "
-          f"{flash_attention.launches - b3}")
+    launches = (f"kernel launches: decode attention "
+                f"{decode_attention.launches - b1}, flash attention "
+                f"{flash_attention.launches - b3}")
+    if isinstance(eng, ConstellationRouter):
+        s = eng.plane_stats()
+        print(f"  serve: plane of {args.replicas} replicas, "
+              f"{s['engines']['tokens'] / dt:.0f} tok/s co-resident, "
+              f"{s['swaps']} plane-wide param swaps (v"
+              f"{eng.params_version}), {s['migrated_slots']} slots "
+              f"migrated ({s['pointer_flips']} pointer flips), "
+              f"{s['masked_pod_ticks']} masked pod-ticks | {launches}")
+        if args.force_outage_at is not None:
+            check_forced_outage_contract(eng, done, args.requests)
+            print(f"  outage '{args.force_outage_at}': zero drops, "
+                  f"{s['migrated_slots']} slots failed over")
+    else:
+        s = eng.stats
+        print(f"  serve: {s['tokens'] / dt:.0f} tok/s co-resident, "
+              f"{s['swaps']} live param swaps (engine "
+              f"v{eng.params_version}) | {launches}")
 
 
 if __name__ == "__main__":

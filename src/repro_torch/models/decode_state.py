@@ -11,14 +11,26 @@ top and per-page refcounts) is device tensors updated by whole-batch
 tensor ops, so alloc and free run inside the engine's decode block with
 no host round-trip.
 
+Where the slot axis lives (`batch_axes`) and which leaves grow with the
+sequence (`length_axes`, -1 for an O(1) or O(window) carry leaf) make
+the engine's migration machinery four generic tree operations:
+`state_rows`, `merge_rows`, `delta_since` and `delta_apply`.  They are
+the defaults of the spec's hooks (`export_rows`, `import_rows`,
+`export_delta_rows`, `apply_delta_rows`); the paged layout overrides
+them and ships dense logical rows, the wire format, so a bundle moves
+between any two layouts with the same max_len.  Every index vector is
+full-width (max_batch,), so one op serves every migration size.
+
 Large buffers (the dense cache, the page pools, the RG-LRU attention
 ring) are written in place; the small tensors (pos, page table, free
 stack, refcounts, prefix table, the RG-LRU carries) are replaced, never
 mutated, so `freeze` can still read the values from before a sub-step.
-The migration and delta hooks of the reference wait for the router
-slice.
+The migration ops return fresh tensors: a bundle never aliases the state
+it was gathered from, so its source may go on decoding.
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -46,6 +58,15 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _leaves(tree) -> list:
+    """Leaves of nested dicts and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def admit_merge(state, fresh, axes, admit):
     """Overwrite `admit`-masked slot rows of `state` with `fresh` rows
     (trees of tensors of one structure; `axes` gives each slot axis)."""
@@ -58,6 +79,88 @@ def _hold(new, old, active, axes):
     return _tree_map(
         lambda n, o, ax: torch.where(_bcast(active, n.dim(), ax), n, o),
         new, old, axes)
+
+
+def _take(x, idx, ax: int):
+    """Rows `idx` of `x` along axis `ax`, as a fresh tensor."""
+    return torch.index_select(x, ax, idx.long())
+
+
+def _take_along(x, ind, ax: int, lax: int):
+    """x gathered along its length axis `lax` by a (B, W) index whose row b
+    is read from slot row b of axis `ax`."""
+    shape = [1] * x.dim()
+    shape[ax], shape[lax] = ind.shape
+    size = list(x.shape)
+    size[lax] = ind.shape[1]
+    return torch.gather(x, lax, ind.long().reshape(shape).expand(size))
+
+
+def state_rows(state, axes, idx):
+    """Gather slot rows `idx` (full-width, (max_batch,)) of every leaf into
+    fresh tensors."""
+    return _tree_map(lambda x, ax: _take(x, idx, ax), state, axes)
+
+
+def merge_rows(state, bundle, axes, src_for_dst, mask):
+    """Scatter bundle rows into `mask`-ed slots: row d takes bundle row
+    `src_for_dst[d]`; unmasked rows are untouched, so resident generations
+    cannot be perturbed by an import."""
+    def leaf(old, b, ax):
+        g = _take(b, src_for_dst, ax)
+        return torch.where(_bcast(mask, old.dim(), ax), g, old)
+    return _tree_map(leaf, state, bundle, axes)
+
+
+def delta_since(state, axes, laxes, idx, starts, width: int):
+    """Gather rows `idx`, windowed to [starts, starts + width) along each
+    leaf's length axis (clipped to the leaf).  Leaves with a length axis
+    of -1 (recurrent carries, rings, pos) ship whole."""
+    def leaf(x, ax, lax_):
+        g = _take(x, idx, ax)
+        if lax_ < 0:
+            return g
+        if not ax < lax_:
+            raise ValueError("the slot axis must precede the length axis")
+        cols = starts[:, None] + torch.arange(width, device=x.device)
+        return _take_along(g, torch.clamp(cols, 0, g.shape[lax_] - 1),
+                           ax, lax_)
+    return _tree_map(leaf, state, axes, laxes)
+
+
+def delta_apply(state, bundle, axes, laxes, src_for_dst, starts, mask):
+    """Scatter a `delta_since` bundle into `mask`-ed standby rows: row r
+    takes bundle row `src_for_dst[r]`, windowed leaves at [starts[r],
+    starts[r] + W) cut to the rows its source wrote (its pos), carry
+    leaves whole.  The standby pos becomes the replication cursor:
+    min(starts + W, source pos) where any leaf is windowed, else the
+    source pos (the whole state shipped, so the standby is promotable
+    after every sync)."""
+    pos = _take(bundle["pos"], src_for_dst, 0)
+
+    def rest(t):
+        return {k: v for k, v in t.items() if k != "pos"}
+    widths = [b.shape[lx] for b, lx in
+              zip(_leaves(rest(bundle)), _leaves(rest(laxes))) if lx >= 0]
+
+    def leaf(old, b, ax, lax_):
+        g = _take(b, src_for_dst, ax)
+        if lax_ < 0:
+            return torch.where(_bcast(mask, old.dim(), ax), g, old)
+        w, m = b.shape[lax_], old.shape[lax_]
+        pend = torch.clamp(pos - starts, 0, w)            # rows to copy
+        rel = torch.arange(m, device=old.device)[None, :] - starts[:, None]
+        in_win = (rel >= 0) & (rel < pend[:, None]) & mask[:, None]
+        shape = [1] * old.dim()
+        shape[ax], shape[lax_] = rel.shape
+        return torch.where(in_win.reshape(shape),
+                           _take_along(g, torch.clamp(rel, 0, w - 1),
+                                       ax, lax_), old)
+
+    out = _tree_map(leaf, rest(state), rest(bundle), rest(axes), rest(laxes))
+    cursor = torch.minimum(starts + widths[0], pos) if widths else pos
+    out["pos"] = torch.where(mask, cursor, state["pos"])
+    return out
 
 
 def _set_drop(dst, idx, vals):
@@ -160,6 +263,54 @@ class DecodeStateSpec:
         their pages); identity for row-partitioned families."""
         return state
 
+    @property
+    def windowed(self) -> bool:
+        """True when a leaf grows with the sequence (KV families): the
+        router then replicates in windowed deltas behind a cursor, while
+        a carry family ships its whole state on every sync."""
+        return any(lx >= 0 for lx in _leaves(self.length_axes()))
+
+    # --- migration and replication hooks: the four tree ops over the
+    # axis declarations; the paged layout overrides them with the same
+    # wire format
+    def export_rows(self, state, idx):
+        return state_rows(state, self.batch_axes(), idx)
+
+    def import_rows(self, state, bundle, src_for_dst, mask):
+        return merge_rows(state, bundle, self.batch_axes(), src_for_dst,
+                          mask)
+
+    def export_delta_rows(self, state, idx, starts, width):
+        return delta_since(state, self.batch_axes(), self.length_axes(),
+                           idx, starts, width)
+
+    def apply_delta_rows(self, state, bundle, src_for_dst, starts, mask):
+        return delta_apply(state, bundle, self.batch_axes(),
+                           self.length_axes(), src_for_dst, starts, mask)
+
+    def init_standby(self, state):
+        """The warm-standby store: zeros in the wire format of `state`."""
+        return _tree_map(torch.zeros_like, state)
+
+    def row_wire_bytes(self, max_len):
+        """Wire bytes of one slot row, from the axis declarations and the
+        dtypes this spec allocates (the engine's compute dtype): (full,
+        per_pos, carry).  full is one row's whole state, per_pos the bytes
+        per cache position over the windowed leaves, carry the leaves
+        shipped whole on every sync (a carry family's entire row).
+        Computed from shapes on the meta device: no device work."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        st = meta.init_state(1, max_len)
+        full = per_pos = windowed_bytes = 0
+        for leaf, lx in zip(_leaves(st), _leaves(self.length_axes())):
+            nb = leaf.numel() * leaf.element_size()
+            full += nb
+            if lx >= 0:
+                per_pos += nb // leaf.shape[lx]
+                windowed_bytes += nb
+        return full, per_pos, full - windowed_bytes
+
 
 class TransformerDecodeState(DecodeStateSpec):
     """KV family: (L, B, M, Hkv, dh) cache rows plus a per-row pos."""
@@ -243,6 +394,8 @@ class PagedTransformerDecodeState(TransformerDecodeState):
                 f"pool_pages {self.pool_pages} cannot hold even one "
                 f"max_len row ({self.max_pages} pages)")
         self.prefix_entries = prefix_entries
+        self.max_batch = max_batch
+        self.max_len = max_len
         self._dense = TransformerDecodeState(cfg, device)
 
     def init_state(self, batch, max_len, dtype=None):
@@ -358,12 +511,59 @@ class PagedTransformerDecodeState(TransformerDecodeState):
                    pos=torch.where(admit, lens, state["pos"]))
         return logits, new
 
+    # --- migration and replication: the dense logical rows on the wire
+    # (the axis declarations above describe that format, not the pool)
+    def export_rows(self, state, idx):
+        ptab = _take(state["ptab"], idx, 0)
+        return {"k": _gather_logical(state["kp"], ptab),
+                "v": _gather_logical(state["vp"], ptab),
+                "pos": _take(state["pos"], idx, 0)}
+
+    def import_rows(self, state, bundle, src_for_dst, mask):
+        """Target rows drop their pages, then take ceil(pos / ps) fresh
+        pages each (the allocator's row-major order, as prefill takes
+        them) and their positions [0, pos) are written into them."""
+        state = self.release(state, mask)
+        bk = _take(bundle["k"], src_for_dst, 1)
+        bv = _take(bundle["v"], src_for_dst, 1)
+        pos = torch.where(mask, _take(bundle["pos"], src_for_dst, 0), 0)
+        cols = torch.arange(self.max_pages, device=pos.device)[None]
+        take = mask[:, None] & (cols < (-(-pos // self.page_size))[:, None])
+        ptab, ref, top = _alloc_rows(state["ptab"], state["free"],
+                                     state["top"], state["ref"], take)
+        t = torch.arange(bk.shape[2], device=pos.device)[None]
+        write = mask[:, None] & (t < pos[:, None])
+        return {**state, "ptab": ptab, "ref": ref, "top": top,
+                "kp": _scatter_logical(state["kp"], ptab, bk, write),
+                "vp": _scatter_logical(state["vp"], ptab, bv, write),
+                "pos": torch.where(mask, pos, state["pos"])}
+
+    def export_delta_rows(self, state, idx, starts, width):
+        ptab = _take(state["ptab"], idx, 0)
+        cols = torch.clamp(
+            starts[:, None] + torch.arange(width, device=ptab.device), 0,
+            self.padded_len - 1)                           # (B, W)
+        pid = torch.gather(ptab, 1, (cols // self.page_size).long())
+        off = (cols % self.page_size).long()
+        return {"k": state["kp"][:, pid.long(), off],
+                "v": state["vp"][:, pid.long(), off],
+                "pos": _take(state["pos"], idx, 0)}
+
+    def init_standby(self, state):
+        """The standby store holds the wire format: dense logical rows."""
+        return self._dense.init_state(self.max_batch, self.max_len)
+
+    def row_wire_bytes(self, max_len):
+        return self._dense.row_wire_bytes(max_len)
+
 
 class RGLRUDecodeState(DecodeStateSpec):
     """Griffin/RecurrentGemma carry: per-layer (h, conv) RG-LRU states,
     an O(window) local-attention ring and a per-row pos.  The ring's slots
     are position-modular, not cursor-contiguous, so no leaf has a length
-    axis (all -1), as in the reference.
+    axis (all -1), as in the reference: the ring and the carries ship
+    whole on every standby sync, O(window) and not O(seq), and a standby
+    is promotable after every sync.
 
     `decode` writes the ring in place at slot pos % W for every row,
     inactive ones included; it keeps the slots it overwrote on the spec,

@@ -25,9 +25,22 @@ construction) and applies them at the first moment no request is in
 flight; admissions are held meanwhile, so a request admitted under param
 version v decodes its whole generation on v.
 
-Not ported yet: the migration surface (`export_slots` ... `clear_rows`,
-ROADMAP A4); the reference's `trace_count()` has no counterpart in eager
-PyTorch.
+Migration (the serving plane, `serving/router.py`): `export_slots` and
+`import_slots` move in-flight generations between engines on the same
+param version bit-exactly: the bundle holds the slots' sampler state
+(last token, budget, eos, temperature, PRNG stream) and their decode
+state rows in the spec's wire format, so the resumed decode continues
+the request's stream and kv length where the source stopped.
+`export_delta` and `standby_apply` keep a warm standby of another
+engine's slots in this engine's standby store; `promote_standby` resumes
+one from it (a pointer flip) and `clear_rows` wipes rows whose
+generations now live elsewhere.  Each is one pass of device ops over
+full-width index vectors built on the host; on a CUDA device the vectors
+go up from pinned memory without waiting and the ops run under sync
+debug mode "error", so replication never blocks the host.
+
+The reference's `trace_count()` has no counterpart in eager PyTorch
+(ROADMAP A2 brings a capture count).
 """
 from __future__ import annotations
 
@@ -56,6 +69,9 @@ class Request:
       temperature: 0 = greedy argmax; > 0 samples top-k at this
         temperature from the request's own PRNG stream.
       eos_id: stop token (None = budget/max_len only).
+      arch: arch-group label (a model config name) on a mixed
+        ConstellationRouter plane; None = the plane's default group.
+        A bare ServingEngine ignores it.
       generated: output token ids (filled in by the engine).
       done: set once the request left its slot.
     """
@@ -64,6 +80,7 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 = greedy
     eos_id: Optional[int] = None
+    arch: Optional[str] = None
     # outputs
     generated: list = field(default_factory=list)
     done: bool = False
@@ -167,13 +184,16 @@ class ServingEngine:
             "eos": torch.full((b,), -1, dtype=torch.int32, device=dev),
             "rkey": torch.zeros((b, 2), dtype=torch.int64, device=dev),
         }
+        self._state_axes = {k: 0 for k in self.state}   # all slot-major
         self._base_key = prng.PRNGKey(ecfg.seed, dev)
         self._next_seq = 0
         self.slots: list[Optional[Request]] = [None] * b
         self.queue: list[Request] = []
         self.finished: list[Request] = []
+        self.standby = None          # warm-standby store, made on demand
         self.stats = {"tokens": 0, "host_syncs": 0, "decode_blocks": 0,
-                      "swaps": 0}
+                      "swaps": 0, "exported_slots": 0, "imported_slots": 0,
+                      "standby_syncs": 0, "promoted_slots": 0}
         # host-side conservative page accounting (paged only): admission
         # reserves worst-case pages per request so the device allocator's
         # free stack never underflows.  device free >= _pool_free >= 0.
@@ -279,18 +299,252 @@ class ServingEngine:
         }
         return new_cache, new_state, first, done0
 
+    # --- slot migration (the serving plane) --------------------------------
+    def _export_impl(self, cache, state, idx, drop):
+        """Gather rows `idx` of the slot state and the decode state (in the
+        spec's wire format) into fresh tensors; deactivate `drop`-masked
+        rows on the source, which hand their pages back (paged)."""
+        bundle_cache = self.spec.export_rows(cache, idx)
+        bundle_state = ds.state_rows(state, self._state_axes, idx)
+        new_state = {**state, "active": state["active"] & ~drop}
+        return (bundle_cache, bundle_state, self.spec.release(cache, drop),
+                new_state)
+
+    def _import_impl(self, cache, state, bcache, bstate, src_for_dst, mask):
+        """Scatter bundle rows into `mask`-ed slots; row d takes bundle row
+        `src_for_dst[d]`.  Unmasked rows are untouched."""
+        return (self.spec.import_rows(cache, bcache, src_for_dst, mask),
+                ds.merge_rows(state, bstate, self._state_axes, src_for_dst,
+                              mask))
+
+    def export_slots(self, slot_ids) -> dict:
+        """Take the in-flight generations in `slot_ids` off this engine.
+
+        Returns a bundle of their device state (fresh tensors: the source
+        may go on decoding its other slots), the Request objects, the
+        params_version and max_len.  The slots are freed.  No device read."""
+        slot_ids = list(slot_ids)
+        if not slot_ids:
+            raise ValueError("export_slots: empty slot list")
+        b = self.ecfg.max_batch
+        idx = np.zeros((b,), np.int32)
+        drop = np.zeros((b,), bool)
+        reqs = []
+        for j, s in enumerate(slot_ids):
+            req = self.slots[s]
+            if req is None:
+                raise ValueError(f"export_slots: slot {s} is empty")
+            idx[j] = s
+            drop[s] = True
+            reqs.append(req)
+        idx, drop = self._to_device(idx), self._to_device(drop)
+        with no_host_sync(self.device):
+            bcache, bstate, self.cache, self.state = self._export_impl(
+                self.cache, self.state, idx, drop)
+        for s in slot_ids:
+            self.slots[s] = None
+            self._return_pages(s)
+        self.stats["exported_slots"] += len(reqs)
+        return {"cache": bcache, "state": bstate, "requests": reqs,
+                "params_version": self.params_version,
+                "max_len": self.ecfg.max_len}
+
+    def import_slots(self, bundle) -> list[int]:
+        """Resume a bundle of exported generations in this engine's free
+        slots; returns their slot ids.  The engine must serve the param
+        version the requests were admitted under and share max_len (the
+        row length); a mismatch raises rather than mixing snapshots."""
+        if bundle["max_len"] != self.ecfg.max_len:
+            raise ValueError(
+                f"import_slots: max_len mismatch {bundle['max_len']} != "
+                f"{self.ecfg.max_len} — replicas must share the KV layout")
+        if bundle["params_version"] != self.params_version:
+            raise ValueError(
+                f"import_slots: param snapshot mismatch (bundle v"
+                f"{bundle['params_version']} != engine v"
+                f"{self.params_version}) — a migrated generation must "
+                "resume on its admission snapshot")
+        reqs = bundle["requests"]
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if len(free) < len(reqs):
+            raise ValueError(f"import_slots: {len(reqs)} rows but only "
+                             f"{len(free)} free slots")
+        dst_slots = free[:len(reqs)]
+        self._reserve_for_resume(dst_slots, reqs)
+        self._resume(bundle["cache"], bundle["state"],
+                     list(enumerate(dst_slots)))
+        for d, req in zip(dst_slots, reqs):
+            self.slots[d] = req
+        self.stats["imported_slots"] += len(reqs)
+        return dst_slots
+
+    def _resume(self, bcache, bstate, placements):
+        """One import pass: bundle row j lands in slot d for each (j, d)."""
+        b = self.ecfg.max_batch
+        src = np.zeros((b,), np.int32)
+        mask = np.zeros((b,), bool)
+        for j, d in placements:
+            src[d] = j
+            mask[d] = True
+        src, mask = self._to_device(src), self._to_device(mask)
+        with no_host_sync(self.device):
+            self.cache, self.state = self._import_impl(
+                self.cache, self.state, bcache, bstate, src, mask)
+
+    # --- warm-standby replication ------------------------------------------
+    def _delta_export_impl(self, cache, state, idx, starts, width):
+        """Each `idx` slot's delta: windowed leaves at [starts, starts +
+        width) from the replication cursor, carry leaves whole, plus its
+        sampler state row."""
+        return (self.spec.export_delta_rows(cache, idx, starts, width),
+                ds.state_rows(state, self._state_axes, idx))
+
+    def _standby_apply_impl(self, sb_cache, sb_state, bcache, bstate,
+                            src_for_dst, starts, mask):
+        """Scatter a delta bundle into `mask`-ed standby rows; the standby
+        pos tracks the replication cursor."""
+        return (self.spec.apply_delta_rows(sb_cache, bcache, src_for_dst,
+                                           starts, mask),
+                ds.merge_rows(sb_state, bstate, self._state_axes,
+                              src_for_dst, mask))
+
+    def _deactivate_impl(self, cache, state, drop):
+        return (self.spec.release(cache, drop),
+                {**state, "active": state["active"] & ~drop})
+
+    def ensure_standby(self):
+        """Allocate the warm-standby store (a full-width mirror of the slot
+        state and decode state, in the wire format) on first use."""
+        if self.standby is None:
+            self.standby = {
+                "cache": self.spec.init_standby(self.cache),
+                "state": {k: torch.zeros_like(v)
+                          for k, v in self.state.items()}}
+
+    def export_delta(self, entries, width: int) -> dict:
+        """Delta-export `entries` = [(slot, cursor), ...]: each slot's
+        state delta [cursor, cursor + width) (a carry family's whole
+        state) and its sampler row.  Nothing is deactivated: this is the
+        background replication feed, off the decode path."""
+        b = self.ecfg.max_batch
+        if not 0 < len(entries) <= b:
+            raise ValueError(f"export_delta: {len(entries)} entries for "
+                             f"{b} slots")
+        idx = np.zeros((b,), np.int32)
+        starts = np.zeros((b,), np.int32)
+        for j, (s, c) in enumerate(entries):
+            if self.slots[s] is None:
+                raise ValueError(f"export_delta: slot {s} is empty")
+            idx[j] = s
+            starts[j] = c
+        idx_d, starts_d = self._to_device(idx), self._to_device(starts)
+        with no_host_sync(self.device):
+            bcache, bstate = self._delta_export_impl(
+                self.cache, self.state, idx_d, starts_d, int(width))
+        return {"cache": bcache, "state": bstate, "starts": starts,
+                "params_version": self.params_version,
+                "max_len": self.ecfg.max_len}
+
+    def standby_apply(self, bundle, placements):
+        """Apply a delta bundle to this engine's standby store;
+        `placements` = [(bundle_row, standby_row), ...].  The bundle must
+        come from an engine on the same params and max_len: a standby is
+        only ever promoted into this engine."""
+        if bundle["max_len"] != self.ecfg.max_len:
+            raise ValueError(
+                f"standby_apply: max_len mismatch {bundle['max_len']} != "
+                f"{self.ecfg.max_len}")
+        if bundle["params_version"] != self.params_version:
+            raise ValueError(
+                f"standby_apply: param snapshot mismatch (bundle v"
+                f"{bundle['params_version']} != engine v"
+                f"{self.params_version})")
+        self.ensure_standby()
+        b = self.ecfg.max_batch
+        src = np.zeros((b,), np.int32)
+        starts = np.zeros((b,), np.int32)
+        mask = np.zeros((b,), bool)
+        for j, r in placements:
+            src[r] = j
+            starts[r] = bundle["starts"][j]
+            mask[r] = True
+        dev = self._to_device
+        src, starts, mask = dev(src), dev(starts), dev(mask)
+        with no_host_sync(self.device):
+            sc, ss = self._standby_apply_impl(
+                self.standby["cache"], self.standby["state"],
+                bundle["cache"], bundle["state"], src, starts, mask)
+        self.standby = {"cache": sc, "state": ss}
+        self.stats["standby_syncs"] += 1
+
+    def promote_standby(self, pairs) -> list[int]:
+        """Pointer-flip failover: resume `pairs` = [(standby_row, Request),
+        ...] from this engine's own standby store into its free slots, by
+        the import pass.  The caller promotes only fresh standbys (cursor
+        at the source's pos, state synced after its last decode block):
+        then the continuation is bit-identical."""
+        if self.standby is None:
+            raise ValueError("promote_standby: no standby store")
+        reqs = [r for _, r in pairs]
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if len(free) < len(reqs):
+            raise ValueError(f"promote_standby: {len(reqs)} rows but only "
+                             f"{len(free)} free slots")
+        dst_slots = free[:len(reqs)]
+        self._reserve_for_resume(dst_slots, reqs)
+        self._resume(self.standby["cache"], self.standby["state"],
+                     [(row, d) for (row, _), d in zip(pairs, dst_slots)])
+        for d, req in zip(dst_slots, reqs):
+            self.slots[d] = req
+        self.stats["promoted_slots"] += len(reqs)
+        return dst_slots
+
+    def clear_rows(self, slot_ids):
+        """Deactivate device rows whose generations now live elsewhere
+        (pointer-flipped away, or shed)."""
+        drop = np.zeros((self.ecfg.max_batch,), bool)
+        for s in slot_ids:
+            drop[s] = True
+            self._return_pages(s)
+        drop = self._to_device(drop)
+        with no_host_sync(self.device):
+            self.cache, self.state = self._deactivate_impl(
+                self.cache, self.state, drop)
+
     # --- host-side page accounting (paged layout only) ---------------------
     @property
     def _paged(self) -> bool:
         return bool(self.ecfg.page_size)
 
     def _return_pages(self, slot: int):
-        """A finished slot's worst-case reservation, minus pages pinned in
-        the prefix cache, goes back to the host's free-page count."""
+        """A slot left the engine (finished, exported, cleared): its
+        worst-case reservation, minus pages pinned in the prefix cache,
+        goes back to the host's free-page count."""
         if not self._paged:
             return
         reserve, pinned = self._reserved.pop(slot, (0, 0))
         self._pool_free += reserve - pinned
+
+    def _reserve_for_resume(self, dst_slots, reqs):
+        """Reserve pages for rows arriving by import or promotion: every
+        page the resumed generation can still touch.  Raises if the pool
+        cannot cover it (the caller keeps the bundle)."""
+        if not self._paged:
+            return
+        ps = self.ecfg.page_size
+        plans = []
+        for req in reqs:
+            kv = len(req.prompt) + len(req.generated)
+            left = req.max_new_tokens - len(req.generated)
+            plans.append(-(-min(kv + max(left, 0), self.ecfg.max_len) // ps))
+        if sum(plans) > self._pool_free:
+            raise ValueError(
+                f"import: {sum(plans)} pages needed but only "
+                f"{self._pool_free} free in the pool")
+        for d, need in zip(dst_slots, plans):
+            self._reserved[d] = (need, 0)
+            self._pool_free -= need
+            self.stats["pages_reserved"] += need
 
     def _page_plan(self, req: Request):
         """Host half of paged admission: worst-case page reservation and
@@ -375,7 +629,12 @@ class ServingEngine:
         self.queue.append(req)
 
     def _to_device(self, a):
-        return torch.from_numpy(a).to(self.device)
+        """A host array on the engine's device; on CUDA from pinned memory
+        without waiting for the device (no stream sync)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _fill_slots(self):
         """Admit queued requests into free slots via bucketed prefill.
