@@ -5,6 +5,8 @@
   python3 chip_smoke.py --phase 2c   # phases 1 and 2c only, no result line
   python3 chip_smoke.py --phase 8    # phases 1 and 8-10 only, no result line
   python3 chip_smoke.py --phase 11   # phases 1 and 11-13 only, no result line
+  python3 chip_smoke.py --phase 14   # phases 1, 2 at H 16/8 and 14-16 only,
+                                     # no result line
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    src/repro_torch/kernels/{decode_attention,flash_attention,rglru_scan}/
@@ -23,7 +25,9 @@
    every call, beside the HBM bound, the plain version and SDPA, with the
    ratios B1 / SDPA and B2 / B1.  B1/B2 limits: f32 2e-5; bf16 2e-2 of
    each (row, head)'s largest |plain output|, at most 2e-2, and never
-   below 2 bf16 ulps of the element's |plain output|.
+   below 2 bf16 ulps of the element's |plain output|.  The same at
+   granite-moe's decode widths (H 16, Hkv 8: a GQA group of 2) at the
+   serve run's shape, in rows of their own.
    2b. The flash-attention forward kernel (B3) against its plain version:
    the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16, causal and
    not), S 1000, MHA, MQA, dh 128, bf16 within B1's scaled limit and f32
@@ -149,18 +153,48 @@
    paged, and recurrentgemma reduced at d_model 256), f32, 2 + 2 pods, an
    outage schedule, on the card and on the CPU: tokens and every
    plane_stats() counter equal.
+14. Serve granite-moe-1b-a400m at full width (24 layers, d 1024, 16/8
+   heads, dh 64, 32 experts top-8, d_ff 512, vocab 49408; 1.335B params)
+   in bf16, random weights from seed 0 with the embedding scaled by 0.1,
+   through ServingEngine: phase 3's workload (greedy and T 0.7
+   alternating), dense and paged, decode_block 8 and 1.  Every request
+   completes; decode_block 1 == 8 token streams, dense and paged; B1 or
+   B2 launched n_layers x sub-steps times; no host sync inside a decode
+   block (the MoE dispatch included); a finished and a never-used row
+   keep pos, token and KV [0, pos) bitwise across a decode block.
+   Paged == dense is not checked: the reference keeps neither it nor a
+   plane == one engine alone for MoE (ROADMAP C7).  One short run under
+   torch.profiler (sort, gather and index kernels' shares), and the
+   kernel device time of one decode call beside one layer's MoE FFN, its
+   dispatch and its expert products (sums under torch.profiler).
+15. Serve xlstm-350m at full width (12 sLSTM/mLSTM pairs, d 1024, 4
+   heads, vocab 50304) in bf16 with f32 carries, random weights from seed
+   0 with the embedding scaled by 0.1: phase 3's workload at
+   decode_block 8 and 1, bitwise equal; a short run under
+   torch.profiler; a finished and a never-used row keep their whole
+   state bitwise; row_wire_bytes equal to one row the engine holds.  Then
+   a 3-pod plane of 8 slots, 16 requests (prompts cut to 60 tokens), pod
+   1 struck at tick 2 for 3 ticks, replicated and full drain: zero drops,
+   a pointer flip on the replicated plane, every request bitwise equal to
+   one engine serving it alone, the replicated bytes equal to the rows
+   shipped x row_wire_bytes.
+16. Reference: the reduced granite-moe and qwen3-moe (head_dim 64) and
+   xlstm configs, f32, on the card against the CPU: prefill and 8 decode
+   steps, logits within 1e-3, and an engine's token streams equal.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit, and before that one JSON line listing the kernels
-(B1 at dh 64, B2, B3, B4 at the serve and the long prefill shapes, and
-B1 at dh 256 in two rows: the serve run's rings and full rings) with
-their launches on their main paths (B1's dh-64 row phases 3, 9, 11 and
-12; B2's phases 3 and 11; B3's phases 5, 8 and 9; B4's serve row and
-B1's dh-256 serve-rings row phase 6's 16-slot runs and phase 12; the
-long rows phase 6's long runs), errors, times and bounds; B4's rows also
-name their copy path.
+(B1 at dh 64, B2, B3, B4 at the serve and the long prefill shapes,
+B1 at dh 256 in two rows: the serve run's rings and full rings, and B1
+and B2 at H 16 / Hkv 8) with their launches on their main paths (B1's
+dh-64 row phases 3, 9, 11 and 12; B2's phases 3 and 11; B3's phases 5,
+8 and 9; B4's serve row and B1's dh-256 serve-rings row phase 6's
+16-slot runs and phase 12; the long rows phase 6's long runs; the H 16
+rows phase 14), errors, times and bounds; B4's rows also name their copy
+path.
 """
+import gc
 import json
 import os
 import re
@@ -265,7 +299,10 @@ def bound(lens, ps, dtype, itemsize, b, h=H, hkv=HKV, dh=DH):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, timer):
+def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
+    """B1 and B2 at H `h`, Hkv `hkv`, dh 64 over `cases` of (B, M,
+    kv_len ceiling, pool pages at page 16), the first being the serve
+    run's shape; returns their rows, timed there, named with `suffix`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
@@ -276,15 +313,16 @@ def kernel_phase(torch, timer):
     # (B, M, kv_len ceiling, pool pages at page 16): the serve run's shape
     # (its kv_len <= 200 + 32 and pool of 256 pages), then two wider
     # cases with full-length rows
-    for b, m, cap, pool16 in ((16, 512, 232, 256), (8, 1024, 1024, None),
-                              (64, 1024, 1024, None)):
+    for b, m, cap, pool16 in cases or ((16, 512, 232, 256),
+                                       (8, 1024, 1024, None),
+                                       (64, 1024, 1024, None)):
         main_case = (b, m) == (16, 512)
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             g = torch.Generator().manual_seed(b * 7 + m)
-            q = torch.randn(b, H, DH, generator=g).to(dev, dt)
-            kc = torch.randn(b, m, HKV, DH, generator=g).to(dev, dt)
-            vc = torch.randn(b, m, HKV, DH, generator=g).to(dev, dt)
+            q = torch.randn(b, h, DH, generator=g).to(dev, dt)
+            kc = torch.randn(b, m, hkv, DH, generator=g).to(dev, dt)
+            vc = torch.randn(b, m, hkv, DH, generator=g).to(dev, dt)
             lens_l = torch.randint(1, cap + 1, (b,), generator=g).tolist()
             lens_l[:4] = [0, 33, cap, cap - 1]
             lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
@@ -296,8 +334,8 @@ def kernel_phase(torch, timer):
             check(share <= 1, f"B1 {dtype} B={b} M={m}: max abs err {err}, "
                   f"{share:.3f} of its limit")
             check(bool((out[0] == 0).all()), "B1 kv_len == 0 row not zero")
-            line = (f"  B={b:3d} M={m} {dtype:8s} B1 err {err:.3e} "
-                    f"({share:.3f} of the limit)")
+            line = (f"  H {h}/{hkv} B={b:3d} M={m} {dtype:8s} B1 err "
+                    f"{err:.3e} ({share:.3f} of the limit)")
             perr = {}
             for ps in (16, 64):
                 # each row's live pages on distinct, shuffled physical
@@ -311,11 +349,11 @@ def kernel_phase(torch, timer):
                 rows_t = torch.tensor(rows_, device=dev)
                 cols_t = torch.tensor(cols_, device=dev)
                 phys = phys.to(dev)
-                kp = torch.zeros(n_pool + 1, ps, HKV, DH, dtype=dt,
+                kp = torch.zeros(n_pool + 1, ps, hkv, DH, dtype=dt,
                                  device=dev)
                 vp = torch.zeros_like(kp)
-                kp[phys] = kc.reshape(b, mp, ps, HKV, DH)[rows_t, cols_t]
-                vp[phys] = vc.reshape(b, mp, ps, HKV, DH)[rows_t, cols_t]
+                kp[phys] = kc.reshape(b, mp, ps, hkv, DH)[rows_t, cols_t]
+                vp[phys] = vc.reshape(b, mp, ps, hkv, DH)[rows_t, cols_t]
                 ptab = torch.full((b, mp), n_pool, dtype=torch.int32,
                                   device=dev)
                 ptab[rows_t, cols_t] = phys.to(torch.int32)
@@ -355,8 +393,8 @@ def kernel_phase(torch, timer):
                         iters=20)
     sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, enable_gqa=True))
-    bms, by = bound(lens_l, 0, "bfloat16", 2, q.shape[0])
-    rows.append({"name": "decode_attention", "route": "cuda",
+    bms, by = bound(lens_l, 0, "bfloat16", 2, q.shape[0], h, hkv)
+    rows.append({"name": "decode_attention" + suffix, "route": "cuda",
                  "source": "src/repro_torch/kernels/decode_attention/csrc/"
                            "decode_attention.cu",
                  "replaces": "src/repro/kernels/decode_attention/"
@@ -367,8 +405,9 @@ def kernel_phase(torch, timer):
     b2_ms = timer.ms(lambda: paged_decode_attention(q, kp, vp, ptab, lens))
     plain2_ms = timer.ms(lambda: paged_decode_attention_reference(
         q, kp, vp, ptab, lens), iters=20)
-    bms, by = bound(lens_l, ps, "bfloat16", 2, q.shape[0])
-    rows.append({"name": "paged_decode_attention", "route": "cuda",
+    bms, by = bound(lens_l, ps, "bfloat16", 2, q.shape[0], h, hkv)
+    rows.append({"name": "paged_decode_attention" + suffix,
+                 "route": "cuda",
                  "source": "src/repro_torch/kernels/decode_attention/csrc/"
                            "decode_attention.cu",
                  "replaces": "src/repro/kernels/decode_attention/"
@@ -376,12 +415,12 @@ def kernel_phase(torch, timer):
                  "max_abs_err": perr, "ms": b2_ms, "plain_ms": plain2_ms,
                  "bound_ms": bms, "bound_by": by, "library_ms": None})
     for r in rows:
-        print(f"  {r['name']} @ B=16 M=512 bf16 (ps 16 for B2): "
+        print(f"  {r['name']} @ H {h}/{hkv} B=16 M=512 bf16 (ps 16 for B2): "
               f"{r['ms'] * 1e3:.2f} us | bound {r['bound_ms'] * 1e3:.2f} us "
               f"({r['bound_by']}) | plain {r['plain_ms'] * 1e3:.2f} us | "
               f"SDPA {r['library_ms'] and r['library_ms'] * 1e3}", flush=True)
-    print(f"  B1 / SDPA at dh 64: {b1_ms / sdpa_ms:.3f} | B2 / B1: "
-          f"{b2_ms / b1_ms:.3f}", flush=True)
+    print(f"  B1 / SDPA at H {h}/{hkv}, dh 64: {b1_ms / sdpa_ms:.3f} | "
+          f"B2 / B1: {b2_ms / b1_ms:.3f}", flush=True)
     return rows
 
 
@@ -606,8 +645,9 @@ def profile_window(torch, label, fn, watch=()):
     string.  Returns {"wall": s, "busy": s, name: (s, launches) for each
     watched name}, or None where the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events would triple the trace's
+    # processing time and add nothing to these sums
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = fn()
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA"]
@@ -632,6 +672,28 @@ def profile_window(torch, label, fn, watch=()):
         print(f"    {name}: {t * 1e3:.2f} ms = {t / busy:.1%} of device "
               f"time over {n} launches", flush=True)
     return seen
+
+
+def kernel_ms(torch, fn, reps=3, tries=3):
+    """Device time of one call of fn() with many small kernels: the sum of
+    its kernels' device time under torch.profiler, the mean of `reps`
+    calls after a warm-up.  Unlike CUDA events around the call, the
+    host's launch gaps do not count.  None when `tries` profiles in a
+    row record no device time (a profile can come back without the
+    calls' kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        if total > 0:
+            return total / 1e3 / reps
+    return None
 
 
 def train_phase(torch):
@@ -2027,14 +2089,460 @@ def new_paths(torch):
     return b3 + b3_co, b1
 
 
+def _family_requests(Request, prompts, new):
+    """Requests of the prompt mix, greedy and T 0.7 alternating."""
+    return [Request(uid=i, prompt=p, max_new_tokens=new,
+                    temperature=0.0 if i % 2 == 0 else 0.7)
+            for i, p in enumerate(prompts)]
+
+
+def moe_serve_phase(torch):
+    """granite-moe-1b-a400m at full width through ServingEngine (phase
+    14): the phase 3 workload, dense and paged, decode_block 8 and 1.
+    Returns (B1 launches, B2 launches) over its served runs."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.models import registry
+    from repro_torch.models.moe import (capacity_of, moe_ffn, router_topk,
+                                        slot_table)
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.train.tree import tree_leaves
+    dev = torch.device("cuda")
+    cfg = registry.get_config("granite-moe-1b-a400m")
+    fns = registry.model_fns(cfg)
+    t0 = time.perf_counter()
+    params = context_params(torch, fns, cfg, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == cfg.param_count(), "param count")
+    params = fns.cast_params(params, cfg)     # one bf16 copy for every run
+    torch.cuda.synchronize()
+    print(f"  {n_params / 1e9:.3f}B params "
+          f"({cfg.active_param_count() / 1e9:.3f}B active per token) from "
+          f"seed 0, the embedding scaled by 0.1, "
+          f"cast to bf16: {time.perf_counter() - t0:.1f} s | "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    slots, max_len, n_req, max_new = 16, 512, 32, 32
+    prompts = _rglru_workload(np, cfg.vocab_size, n_req,
+                              np.random.default_rng(0))
+    check(min(map(len, prompts)) >= 4 and max(map(len, prompts)) <= 200,
+          "prompt lengths outside 4-200")
+    dense_pages = slots * max_len // 16
+
+    def ecfg(page_size, block):
+        return EngineConfig(
+            max_batch=slots, max_len=max_len, decode_block=block,
+            page_size=page_size,
+            pool_pages=dense_pages // 2 if page_size else None,
+            prefix_cache=8 if page_size else 0)
+
+    def run(page_size, block, ps=prompts, new=max_new):
+        eng = ServingEngine(cfg, fns, params, ecfg(page_size, block))
+        for r in _family_requests(Request, ps, new):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_attention.launches = 0
+        paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = (decode_attention.launches, paged_decode_attention.launches)
+        s = eng.stats
+        check(len(done) == len(ps) and all(len(r.generated) == new
+                                           for r in done),
+              f"not every request completed (page {page_size}, block "
+              f"{block})")
+        sub = s["decode_blocks"] * block
+        want = ((0, cfg.n_layers * sub) if page_size
+                else (cfg.n_layers * sub, 0))
+        check(got == want, f"kernel launches (B1, B2) {got} != {want} "
+              f"(n_layers x {sub} sub-steps)")
+        print(f"  serve {'paged' if page_size else 'dense'} decode_block "
+              f"{block}: {s['tokens']} tokens in {dt:.3f} s = "
+              f"{s['tokens'] / dt:.1f} tok/s | "
+              f"{s['host_syncs'] / s['tokens']:.4f} host syncs/token | "
+              f"{s['decode_blocks']} blocks | launches B1 {got[0]} B2 "
+              f"{got[1]} | peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        return eng, {r.uid: r.generated for r in done}, dt, got
+
+    run(0, 8, prompts[:4], 4)            # warm-up: cuBLAS, allocator
+    totals = [0, 0]
+    streams = {}
+    for page_size in (0, 16):
+        for block in (8, 1):
+            eng, streams[(page_size, block)], _, got = run(page_size,
+                                                           block)
+            totals[0] += got[0]
+            totals[1] += got[1]
+            del eng
+        check(streams[(page_size, 1)] == streams[(page_size, 8)],
+              f"decode_block 1 != 8 token streams (page {page_size})")
+    dense = streams[(0, 8)]
+    distinct = sorted(len(set(v)) for v in dense.values())
+    apart = sum(streams[(16, 8)][u] != dense[u] for u in dense)
+    print(f"  decode_block 1 == 8 token streams, dense and paged (bitwise); "
+          f"greedy and T 0.7 alternate; distinct tokens per stream "
+          f"{distinct[0]}-{distinct[-1]}", flush=True)
+    print(f"  paged vs dense: {apart} of {n_req} streams differ; not "
+          f"checked: the reference keeps neither paged == dense nor a "
+          f"plane == one engine alone for MoE (every row of a call, "
+          f"inactive ones included, shares the experts' capacity)",
+          flush=True)
+
+    # inactive rows: one request finished at prefill, one slot never used
+    eng = ServingEngine(cfg, fns, params, ecfg(0, 8))
+    for uid, new in enumerate((1, 20, 20)):
+        eng.submit(Request(uid=uid, prompt=prompts[uid],
+                           max_new_tokens=new))
+    eng._fill_slots()
+    check(eng.slots[0] is None and eng.slots[1] is not None,
+          "the one-token request did not finish at prefill")
+
+    def rows(i):
+        st = eng.cache
+        n = int(st["pos"][i])
+        return [st["pos"][i].clone(), st["k"][:, i, :n].clone(),
+                st["v"][:, i, :n].clone(), eng.state["last"][i].clone()]
+    before = {i: rows(i) for i in (0, slots - 1)}
+    eng._decode_block()
+    for i, leaves in before.items():
+        check(all(torch.equal(a, b) for a, b in zip(rows(i), leaves)),
+              f"inactive row {i}'s pos, KV prefix or token changed across "
+              f"a decode block")
+    print("  a finished row and a never-used row keep pos, token and KV "
+          "[0, pos) bitwise across a decode block (their stale writes land "
+          "at pos, past kv_len)", flush=True)
+    del eng
+
+    # a short window under the profiler: one fill of 16 requests
+    prof = profile_window(torch, "granite-moe dense, 16 requests x 16 "
+                          "tokens", lambda: run(0, 8, prompts[:16], 16)[2],
+                          watch=("decode_split_kernel", "decode_merge_kernel",
+                                 "Sort", "sort", "gather", "index"))
+
+    if prof:
+        hit = {n: prof[n][0] for n in ("Sort", "sort", "gather", "index")}
+        print(f"  profiled window's device time: sort kernels "
+              f"{(hit['Sort'] + hit['sort']) / prof['busy']:.1%}, gather "
+              f"kernels {hit['gather'] / prof['busy']:.1%}, index kernels "
+              f"{hit['index'] / prof['busy']:.1%} (the MoE dispatch's, the "
+              f"KV writes' and the sampler's); prefill included",
+              flush=True)
+
+    # one decode call and one layer's MoE FFN at the decode shape (B = T
+    # = 16), by the kernels' device time: the whole FFN, its dispatch
+    # (router, sort, slot table) and its expert products
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    mp = {"router": lp["router"], "wi_gate": lp["moe_wi_gate"],
+          "wi_up": lp["moe_wi_up"], "wo": lp["moe_wo"]}
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(slots, cfg.d_model, generator=g).to(dev, cfg.cdtype)
+    e, k = cfg.num_experts, cfg.top_k
+    cap = capacity_of(slots, e, k, cfg.capacity_factor)
+    xe = torch.randn(e, cap, cfg.d_model, generator=g).to(dev, cfg.cdtype)
+
+    def dispatch():
+        w, ix = router_topk(x, mp["router"], k)
+        return slot_table(ix, w, slots, e, cap, x.dtype)
+
+    def experts():
+        h = F.silu(torch.bmm(xe, mp["wi_gate"])) * torch.bmm(xe, mp["wi_up"])
+        return torch.bmm(h, mp["wo"])
+    cache = fns.init_cache(cfg, slots, max_len, device=dev)
+    cache["pos"] = torch.full((slots,), 200, dtype=torch.int32, device=dev)
+    last = torch.tensor(np.stack([p[:1] for p in prompts[:slots]]),
+                        device=dev)
+    step_ms = kernel_ms(torch, lambda: fns.decode_step(params, cache, last,
+                                                       cfg))
+    parts = {"FFN": lambda: moe_ffn(x, mp, num_experts=e, top_k=k,
+                                    capacity_factor=cfg.capacity_factor),
+             "dispatch (router, sort, slot table)": dispatch,
+             "expert bmm": experts}
+    n = cfg.n_layers
+    line = (f"  one decode call (B 16, kv_len 201): "
+            f"{step_ms * 1e3:.1f} us of kernel time" if step_ms else
+            "  one decode call: kernel time not measured (no device time "
+            "recorded)")
+    line += f"; one layer's MoE at T {slots} (capacity {cap}):"
+    for name, fn in parts.items():
+        ms = kernel_ms(torch, fn)
+        if ms is None:
+            line += f" {name} not measured,"
+            continue
+        line += f" {name} {ms * 1e3:.2f} us"
+        if step_ms:
+            line += f" (x {n} layers = {n * ms / step_ms:.1%} of the call)"
+        line += ","
+    print(line.rstrip(",") + "; sums of kernel device time under "
+          "torch.profiler", flush=True)
+
+    # full-width logits from one decode call: finite, of the right shape
+    cache = fns.init_cache(cfg, 2, 64, device=dev)
+    logits, _ = fns.decode_step(params, cache, torch.tensor(
+        np.stack([prompts[0][:4], prompts[1][:4]]), device=dev), cfg)
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "full-width logits")
+    return tuple(totals)
+
+
+def xlstm_serve_phase(torch):
+    """xlstm-350m at full width through ServingEngine and behind a
+    ConstellationRouter (phase 15)."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.serving import (ConstellationRouter, EngineConfig,
+                                     GridConfig, Request, ServingEngine,
+                                     parse_outage_spec)
+    from repro_torch.train.tree import tree_leaves
+    dev = torch.device("cuda")
+    cfg = registry.get_config("xlstm-350m")
+    fns = registry.model_fns(cfg)
+    t0 = time.perf_counter()
+    params = context_params(torch, fns, cfg, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == cfg.param_count(), "param count")
+    params = fns.cast_params(params, cfg)
+    torch.cuda.synchronize()
+    print(f"  {n_params / 1e9:.3f}B params from seed 0, the embedding "
+          f"scaled by 0.1, cast to bf16 (carries f32): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    slots, max_len, n_req, max_new = 16, 512, 32, 32
+    prompts = _rglru_workload(np, cfg.vocab_size, n_req,
+                              np.random.default_rng(0))
+
+    def run(block, ps, new=max_new, n_slots=slots, label="serve"):
+        eng = ServingEngine(cfg, fns, params, EngineConfig(
+            max_batch=n_slots, max_len=max_len, decode_block=block))
+        calls = []
+        prefill = eng.spec.prefill
+
+        def counted(*a, **k):
+            calls.append(1)
+            return prefill(*a, **k)
+        eng.spec.prefill = counted
+        for r in _family_requests(Request, ps, new):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        s = eng.stats
+        check(len(done) == len(ps) and all(len(r.generated) == new
+                                           for r in done),
+              f"not every request completed (block {block})")
+        print(f"  {label} decode_block {block}: {s['tokens']} tokens in "
+              f"{dt:.3f} s = {s['tokens'] / dt:.1f} tok/s | "
+              f"{s['decode_blocks']} blocks, {len(calls)} prefill calls | "
+              f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        return eng, {r.uid: r.generated for r in done}, dt
+
+    run(8, [p[:12] for p in prompts[:2]], 4, label="warm-up")
+    streams = {}
+    for block in (8, 1):
+        eng, streams[block], _ = run(block, prompts)
+        del eng
+    check(streams[1] == streams[8], "decode_block 1 != 8 token streams")
+    distinct = sorted(len(set(v)) for v in streams[8].values())
+    print(f"  decode_block 1 == 8 token streams (bitwise), greedy and T 0.7 "
+          f"alternating; distinct tokens per stream "
+          f"{distinct[0]}-{distinct[-1]}", flush=True)
+    short = [p[:12] for p in prompts[:8]]
+    profile_window(torch, "xlstm-350m, 8 prompts of 12 tokens x 16 new",
+                   lambda: run(8, short, 16, label="profiled")[2])
+
+    # inactive rows: one request finished at prefill, one slot never used
+    eng = ServingEngine(cfg, fns, params, EngineConfig(
+        max_batch=slots, max_len=max_len, decode_block=8))
+    for uid, new in enumerate((1, 20, 20)):     # one 16-token bucket
+        eng.submit(Request(uid=uid, prompt=prompts[uid][:16],
+                           max_new_tokens=new))
+    eng._fill_slots()
+    check(eng.slots[0] is None and eng.slots[1] is not None,
+          "the one-token request did not finish at prefill")
+
+    def rows(i):
+        st = eng.cache
+        return [st["pos"][i].clone()] + [leaf[:, i].clone() for key in
+                                         ("slstm", "mlstm")
+                                         for leaf in st[key]]
+    before = {i: rows(i) for i in (0, slots - 1)}
+    eng._decode_block()
+    for i, leaves in before.items():
+        check(all(torch.equal(a, b) for a, b in zip(rows(i), leaves)),
+              f"inactive row {i}'s state changed across a decode block")
+    full_b, per_pos_b, carry_b = eng.spec.row_wire_bytes(max_len)
+    check(per_pos_b == 0 and carry_b == full_b
+          and full_b == row_bytes(eng.cache, slots),
+          f"row_wire_bytes {full_b} != the bytes of one row the engine "
+          f"holds {row_bytes(eng.cache, slots)}")
+    print(f"  a finished row and a never-used row keep their whole state "
+          f"(sLSTM and mLSTM carries, pos) bitwise across a decode block | "
+          f"one carry row: {full_b} bytes", flush=True)
+    del eng
+
+    # a 3-pod plane of 8 slots, pod 1 struck at tick 2 for 3 ticks;
+    # replicated, then full drain.  Prompts cut to 60 tokens (buckets 16
+    # to 64): prefill runs the decode cell once per bucket position
+    pods, pslots, n_plane = 3, 8, 16
+    sched = "2:1:3"
+    plane_prompts_ = [p[:60] for p in prompts[:n_plane]]
+    want = None
+    for replicate in (True, False):
+        label = "replicated" if replicate else "full-drain"
+        plane = ConstellationRouter(
+            [ServingEngine(cfg, fns, params, EngineConfig(
+                max_batch=pslots, max_len=max_len, decode_block=8))
+             for _ in range(pods)],
+            forced_outage=parse_outage_spec(sched),
+            grid=GridConfig(replicate=replicate))
+        for r in _family_requests(Request, plane_prompts_, max_new):
+            plane.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = plane.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        s = plane.plane_stats()
+        outage_contract(plane, done, n_plane, expect_pointer_flip=replicate)
+        check(all(len(r.generated) == max_new for r in done),
+              f"{label} plane: a request stopped short")
+        if want is None:
+            alone = ServingEngine(cfg, fns, params, EngineConfig(
+                max_batch=pslots, max_len=max_len, decode_block=8))
+            for r in sorted(done, key=lambda r: r._seq):
+                one = Request(uid=r.uid, prompt=r.prompt,
+                              max_new_tokens=max_new,
+                              temperature=r.temperature)
+                one._seq = r._seq
+                alone.submit(one)
+            want = {r.uid: r.generated for r in alone.run()}
+            del alone
+        bad = [r.uid for r in done if r.generated != want[r.uid]]
+        check(not bad, f"{label} plane: requests {bad} differ from one "
+              f"engine serving them alone")
+        if replicate:
+            check(s["replicated_bytes"] == full_b * s["replicated_rows"] > 0,
+                  f"replicated bytes {s['replicated_bytes']} != "
+                  f"{s['replicated_rows']} rows x row_wire_bytes {full_b}")
+        else:
+            check(s["replicated_bytes"] == 0, "the full-drain plane "
+                  "replicated")
+        stalls = sorted(plane.failover_stalls)
+        e = s["engines"]
+        print(f"  {label} plane ({pods} pods x {pslots} slots, {n_plane} "
+              f"requests of 4-60 prompt tokens, '{sched}'): {e['tokens']} "
+              f"tokens in {dt:.3f} s = "
+              f"{e['tokens'] / dt:.1f} tok/s | {s['pointer_flips']} pointer "
+              f"flips + {s['full_migrations']} full drains, "
+              f"{s['rebalanced_slots']} rebalanced | failover stalls "
+              f"{len(stalls)}: p50 "
+              f"{stalls[len(stalls) // 2] * 1e3 if stalls else 0:.2f} ms, "
+              f"max {stalls[-1] * 1e3 if stalls else 0:.2f} ms | "
+              f"{e['standby_syncs']} standby syncs, {s['replicated_rows']} "
+              f"carry rows = {s['replicated_bytes']} bytes "
+              f"({full_b} per row) | peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        del plane, done
+    print("  replicated and full-drain planes == one engine alone, every "
+          "request bitwise; zero drops", flush=True)
+
+
+def family_reference(torch):
+    """Phase 16: the reduced granite-moe, qwen3-moe (head_dim 64, which
+    the decode kernels take) and xlstm configs in f32, on the card
+    against the CPU: prefill and decode logits within 1e-3, and an
+    engine's token streams equal."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.train.tree import tree_map
+    toks = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16],
+                         [7] * 12, [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]],
+                        dtype=torch.int32)
+    lens = torch.tensor([12, 5, 9], dtype=torch.int32)
+    admit = torch.ones(3, dtype=torch.bool)
+    for arch in ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "xlstm-350m"):
+        over = dict(compute_dtype="float32")
+        if arch != "xlstm-350m":
+            over["head_dim"] = 64
+        cfg = registry.get_reduced_config(arch, **over)
+        fns = registry.model_fns(cfg)
+        cpu = context_params(torch, fns, cfg, "cpu", seed=1)
+        gpu = tree_map(lambda x: x.cuda(), cpu)
+        out = {}
+        for d, p in (("cpu", cpu), ("cuda", gpu)):
+            spec = fns.decode_spec(cfg, d)
+            out[d] = spec, p, spec.prefill(p, spec.init_state(3, 64),
+                                           toks.to(d), lens.to(d),
+                                           admit.to(d))
+        (sc, pc, (lc, stc)), (sg, pg, (lg, stg)) = out["cpu"], out["cuda"]
+        worst = 0.0
+        for _ in range(8):
+            worst = max(worst, (lg.cpu() - lc).abs().max().item())
+            nxt = lc.argmax(-1, keepdim=True).to(torch.int32)
+            lc, stc = sc.decode(pc, stc, nxt)
+            lg, stg = sg.decode(pg, stg, nxt.cuda())
+        worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        check(worst <= 1e-3, f"{arch}: card vs CPU logits differ by {worst}")
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in rng.integers(3, 30, 6)]
+        streams = {}
+        for d, p in (("cpu", cpu), ("cuda", gpu)):
+            eng = ServingEngine(cfg, fns, p, EngineConfig(
+                max_batch=3, max_len=64, decode_block=4))
+            for r in _family_requests(Request, prompts, 12):
+                eng.submit(r)
+            streams[d] = {r.uid: r.generated for r in eng.run()}
+        check(streams["cpu"] == streams["cuda"],
+              f"{arch}: card and CPU token streams differ")
+        print(f"  {cfg.name} f32: prefill + 8 decode steps, card vs CPU "
+              f"logits max abs err {worst:.3e} (tol 1e-3); an engine's 6 "
+              f"streams equal on both", flush=True)
+
+
+def family_paths(torch):
+    """Phases 14-16.  Returns (B1 launches, B2 launches) of phase 14."""
+    gc.collect()             # earlier phases' engines sit in cycles
+    torch.cuda.empty_cache()
+    phase("phase 14: serve granite-moe-1b-a400m (full width, bf16, H 16/8, "
+          "32 experts top-8)")
+    launches = moe_serve_phase(torch)
+    torch.cuda.empty_cache()
+    phase("phase 15: serve xlstm-350m (full width, bf16, f32 carries), "
+          "engine and 3-pod plane")
+    xlstm_serve_phase(torch)
+    torch.cuda.empty_cache()
+    phase("phase 16: MoE and xLSTM reference check")
+    family_reference(torch)
+    check(min(launches) > 0, "B1 or B2 never launched serving "
+          "granite-moe-1b-a400m")
+    return launches
+
+
 def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
     only_new = argv == ["--phase", "8"]
     only_plane = argv == ["--phase", "11"]
-    if argv and not (only_2c or only_new or only_plane):
-        print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11]",
-              file=sys.stderr)
+    only_family = argv == ["--phase", "14"]
+    if argv and not (only_2c or only_new or only_plane or only_family):
+        print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
+              "--phase 14]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2093,6 +2601,12 @@ def main(argv):
         plane_paths(torch)
         print("phases 11-13 alone: no result line")
         return 0
+    if only_family:
+        phase("phase 2: B1/B2 at granite-moe's decode widths (H 16, Hkv 8)")
+        kernel_phase(torch, timer, 16, 8, ((16, 512, 232, 256),), "_h16")
+        family_paths(torch)
+        print("phases 14-16 alone: no result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -2101,11 +2615,16 @@ def main(argv):
         return 0
     phase("phase 2: kernels vs plain versions")
     rows = kernel_phase(torch, timer)
+    print("  granite-moe's decode widths (H 16, Hkv 8: a GQA group of 2):",
+          flush=True)
+    rows_h16 = kernel_phase(torch, timer, 16, 8, ((16, 512, 232, 256),),
+                            "_h16")
     phase("phase 2b: flash-attention kernel vs plain version")
     rows.append(flash_phase(torch, timer))
     phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at head_dim "
           "256")
     rows.extend(rglru_kernel_phase(torch, timer))
+    rows.extend(rows_h16)                    # rows 7 and 8
 
     phase("phase 3: serve suncatcher-lm-100m (full width, bf16)")
     totals = serve_phase(torch)
@@ -2151,6 +2670,9 @@ def main(argv):
     rows[1]["launches"] += b2
     rows[5]["launches"] += b1_256
     rows[3]["launches"] += b4
+    torch.cuda.empty_cache()
+
+    rows[7]["launches"], rows[8]["launches"] = family_paths(torch)
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

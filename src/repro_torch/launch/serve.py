@@ -5,6 +5,10 @@ plane of engine replicas behind a ConstellationRouter, on one device.
       --requests 8 --slots 4 --max-len 128 --decode-block 8
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
       --arch recurrentgemma-2b --requests 8 --slots 4 --max-len 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      --arch granite-moe-1b-a400m --requests 8 --slots 4 --page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      --arch xlstm-350m --requests 8 --slots 4 --max-len 128
 
 Serving plane: --replicas N fronts N engine replicas (one per serving
 pod) with the liveness-routed session grid: requests partition by key
@@ -33,16 +37,19 @@ pod), and requests go round-robin over the groups:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch suncatcher-lm-100m,recurrentgemma-2b --replicas 2 \
-      --requests 8 --max-len 64 --force-outage-at "2:*:3" \
-      --expect-pointer-flip
+      --requests 8 --max-len 64 --max-new-tokens 32 \
+      --force-outage-at "2:*:3" --expect-pointer-flip
+
+(any comma list of ported ids, e.g. suncatcher-lm-100m,xlstm-350m).
 
 It runs on the CUDA card unless `--device cpu` is given; with no card and
 the default device it exits with an error rather than fall back.  Weights
 are random, from a seeded generator.  Besides the engine's or the plane's
 stats it prints how many times each decode-attention kernel and the
 RG-LRU scan kernel were launched (0 on the CPU, where the kernels' plain
-versions run).  `--page-size` with a recurrent (carry) family is refused:
-its state has nothing to page.
+versions run).  `--page-size` with a recurrent (carry) family
+(recurrentgemma-2b, xlstm-350m) is refused: its state has nothing to
+page.
 """
 import argparse
 import time

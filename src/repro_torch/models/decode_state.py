@@ -1,5 +1,5 @@
-"""DecodeState specs for the serving engine: the transformer KV family,
-dense and paged, and the RG-LRU carry family.
+"""DecodeState specs for the serving engine: the transformer KV family
+(dense and MoE, dense and paged) and the RG-LRU and xLSTM carry families.
 
 A spec tells the engine how to allocate the per-slot state
 (`init_state`), advance it one token (`decode`), prefill a ragged bucket
@@ -36,8 +36,10 @@ import torch
 
 from . import rglru as _rglru
 from . import transformer as _transformer
+from . import xlstm as _xlstm
 from .rglru import RGLRUConfig
 from .transformer import TransformerConfig
+from .xlstm import XLSTMConfig
 
 
 def _bcast(vec, ndim: int, ax: int):
@@ -313,9 +315,14 @@ class DecodeStateSpec:
 
 
 class TransformerDecodeState(DecodeStateSpec):
-    """KV family: (L, B, M, Hkv, dh) cache rows plus a per-row pos."""
+    """KV family: (L, B, M, Hkv, dh) cache rows plus a per-row pos.  It
+    covers the MoE configs too ("kv+experts": the decode state is still
+    per-slot KV rows; the expert FFN routes every row of a call
+    together)."""
 
-    state_kind = "kv"
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
+        super().__init__(cfg, device)
+        self.state_kind = "kv+experts" if cfg.is_moe else "kv"
 
     def batch_axes(self):
         return {"k": 1, "v": 1, "pos": 0}
@@ -375,7 +382,7 @@ class PagedTransformerDecodeState(TransformerDecodeState):
                  max_batch: int, max_len: int, pool_pages=None,
                  prefix_entries: int = 0, device="cuda"):
         super().__init__(cfg, device)
-        self.state_kind = "kv-paged"
+        self.state_kind += "-paged"
         if cfg.window is not None:
             raise ValueError("paged KV serving does not support local "
                              "(windowed) attention yet")
@@ -613,6 +620,34 @@ class RGLRUDecodeState(DecodeStateSpec):
         return {k: v if k == "attn" else rest[k] for k, v in new.items()}
 
 
+class XLSTMDecodeState(DecodeStateSpec):
+    """xLSTM carry: the sLSTM (c, n, m, h) scalar memories and the mLSTM
+    matrix memory (C, n, m) of every pair, all O(1) in sequence length
+    and f32, plus a per-row pos.  No leaf has a length axis, so a standby
+    sync ships the whole row.  `decode` returns fresh tensors, so the
+    base class's whole-tree `freeze` holds inactive rows."""
+
+    def init_state(self, batch, max_len, dtype=None):
+        st = _xlstm.init_cache(self.cfg, batch, max_len, dtype,
+                               device=self.device)
+        st["pos"] = torch.zeros((batch,), dtype=torch.int32,
+                                device=self.device)
+        return st
+
+    def batch_axes(self):
+        return {"slstm": (1, 1, 1, 1), "mlstm": (1, 1, 1), "pos": 0}
+
+    def length_axes(self):
+        return _tree_map(lambda _: -1, self.batch_axes())
+
+    def decode(self, params, state, last):
+        return _xlstm.decode_step(params, state, last, self.cfg)
+
+    def prefill(self, params, state, tokens, lens, admit, page_ops=None):
+        logits, fresh = _xlstm.prefill_cells(params, tokens, lens, self.cfg)
+        return logits, admit_merge(state, fresh, self.batch_axes(), admit)
+
+
 def paged_spec(spec: DecodeStateSpec, *, page_size: int,
                max_batch: int, max_len: int, pool_pages=None,
                prefix_entries: int = 0) -> PagedTransformerDecodeState:
@@ -632,6 +667,7 @@ def paged_spec(spec: DecodeStateSpec, *, page_size: int,
 _FAMILIES = {
     TransformerConfig: TransformerDecodeState,
     RGLRUConfig: RGLRUDecodeState,
+    XLSTMConfig: XLSTMDecodeState,
 }
 
 

@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> -> (config, model functions).
 
-Two families are ported so far: the transformer (of its configs, the demo
-LM) and the RG-LRU hybrid (recurrentgemma-2b)."""
+Three families are ported so far: the transformer (of its configs, the
+demo LM and the two MoE configs, granite-moe and qwen3-moe), the RG-LRU
+hybrid (recurrentgemma-2b) and xLSTM (xlstm-350m)."""
 from __future__ import annotations
 
 import importlib
@@ -10,11 +11,14 @@ from types import SimpleNamespace
 
 from .rglru import RGLRUConfig
 from .transformer import TransformerConfig
+from .xlstm import XLSTMConfig
 
-ARCH_IDS = ["suncatcher-lm-100m", "recurrentgemma-2b"]
+ARCH_IDS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "xlstm-350m",
+            "recurrentgemma-2b", "suncatcher-lm-100m"]
 
 # config dataclass -> model module
 _FAMILIES = {
+    XLSTMConfig: "repro_torch.models.xlstm",
     RGLRUConfig: "repro_torch.models.rglru",
     TransformerConfig: "repro_torch.models.transformer",
 }

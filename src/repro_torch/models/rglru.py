@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rglru_scan import rglru_scan
 
+from . import grouped
 from .layers import apply_rope, attention, geglu, rms_norm, rope_cos_sin
 from .losses import chunked_lm_loss, softmax_xent
 
@@ -128,74 +129,29 @@ def _param_specs(cfg: RGLRUConfig) -> dict:
     return spec
 
 
-def _nest(flat: dict) -> dict:
-    out = {}
-    for name, t in flat.items():
-        grp, _, leaf = name.rpartition("/")
-        (out.setdefault(grp, {}) if grp else out)[leaf] = t
-    return out
-
-
 def init_params(gen: torch.Generator, cfg: RGLRUConfig,
                 device="cuda") -> dict:
     """Random params with the reference's shapes and scales, drawn from
     the CPU generator `gen` in a fixed order (so a seed gives the same
     weights on any device) and moved to `device` in param_dtype."""
-    flat = {}
-    for name, (shape, init) in _param_specs(cfg).items():
-        if init == "ones":
-            t = torch.ones(shape, dtype=cfg.pdtype)
-        elif init == "zeros":
-            t = torch.zeros(shape, dtype=cfg.pdtype)
-        elif isinstance(init, tuple):
-            t = torch.empty(shape, dtype=cfg.pdtype).uniform_(
-                *init, generator=gen)
-        else:
-            t = torch.randn(shape, generator=gen, dtype=cfg.pdtype) * init
-        flat[name] = t.to(device)
-    return _nest(flat)
+    return grouped.draw(_param_specs(cfg), gen, cfg.pdtype, device)
 
 
 def params_from_jax(tree, cfg: RGLRUConfig, device="cuda") -> dict:
     """The reference's param pytree, exported leaf by leaf with
     `np.asarray`, as port params on `device` (same names, shapes,
     dtypes)."""
-    want = _param_specs(cfg)
-    flat = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            flat.update({f"{k}/{kk}": vv for kk, vv in v.items()})
-        else:
-            flat[k] = v
-    if set(flat) != set(want):
-        raise ValueError(f"param names differ from the config's: "
-                         f"{sorted(set(flat) ^ set(want))}")
-    out = {}
-    for name, arr in flat.items():
-        if tuple(arr.shape) != want[name][0]:
-            raise ValueError(f"{name}: shape {arr.shape} != {want[name][0]}")
-        out[name] = torch.from_numpy(np.array(arr)).to(device)
-    return _nest(out)
+    return grouped.from_jax(tree, _param_specs(cfg), device)
 
 
 def cast_params(params: dict, cfg: RGLRUConfig) -> dict:
     """One compute-dtype copy of every block weight (lam and the conv
-    taps too: the reference casts the whole block before use) and the
-    final norm, plus "head" (the cast unembedding matrix, embed.T).  The
-    embedding table stays in param_dtype: the reference gathers rows
-    before the cast.  Already-cast params pass through unchanged."""
-    if "head" in params:
-        return params
-    cd = cfg.cdtype
-    out = {k: ({kk: vv.to(cd) for kk, vv in v.items()}
-               if isinstance(v, dict) else v) for k, v in params.items()}
-    out["final_norm"] = params["final_norm"].to(cd)
-    out["head"] = params["embed"].T.to(cd)
-    return out
+    taps too: the reference casts the whole block before use), the final
+    norm and the unembedding ("head"); see `grouped.cast`."""
+    return grouped.cast(params, cfg.cdtype)
 
 
-def _layer(group: dict, i: int) -> dict:
-    return {k: v[i] for k, v in group.items()}
+_layer = grouped.layer
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM in PyTorch: the dense GQA branch of the
-reference `repro.models.transformer`.
+"""Decoder-only transformer LM in PyTorch: the dense GQA and the MoE
+branches of the reference `repro.models.transformer`.
 
 Parameters are a plain dict with per-layer weights stacked on a leading L
 axis, as in the reference, so `params_from_jax` maps one onto the other
@@ -17,8 +17,10 @@ runs under `torch.utils.checkpoint` (the reference's `jax.checkpoint` with
 nothing saveable): the backward pass recomputes the block, attention
 kernel included.
 
-MoE, multi-codebook, sinusoidal positions, parallel blocks, M-RoPE and the
-GeGLU/GELU MLPs are not ported yet: such configs raise NotImplementedError.
+The MoE branch (granite-moe, qwen3-moe) replaces each block's MLP with
+the capacity-routed expert FFN of `models/moe.py`.  Multi-codebook,
+sinusoidal positions, parallel blocks, M-RoPE and the GeGLU/GELU MLPs are
+not ported yet: such configs raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from .layers import (_qpos, apply_rope, attention, layer_norm, rms_norm,
                      rope_cos_sin, swiglu)
 from .losses import chunked_lm_loss, softmax_xent
+from .moe import moe_ffn
 
 
 @dataclass(frozen=True)
@@ -92,10 +95,19 @@ class TransformerConfig:
         return sum(int(np.prod(shape)) for shape, _ in
                    _param_specs(self).values())
 
+    def active_param_count(self) -> int:
+        """Per-token active params (the total for dense; k/E of the experts
+        for MoE)."""
+        total = self.param_count()
+        if not self.is_moe:
+            return total
+        expert = 3 * self.d_model * self.d_ff * self.num_experts * \
+            self.n_layers
+        return total - expert + expert * self.top_k // self.num_experts
+
 
 def _check_supported(cfg: TransformerConfig):
-    waiting = {"num_experts > 0 (MoE)": cfg.is_moe,
-               "n_codebooks > 1": cfg.n_codebooks > 1,
+    waiting = {"n_codebooks > 1": cfg.n_codebooks > 1,
                "pos_embed != 'rope'": cfg.pos_embed != "rope",
                "parallel_block": cfg.parallel_block,
                "mrope_sections (M-RoPE)": cfg.mrope_sections is not None,
@@ -111,7 +123,9 @@ def _check_supported(cfg: TransformerConfig):
 # --------------------------------------------------------------------------
 def _param_specs(cfg: TransformerConfig) -> dict:
     """Flat name -> (shape, init) in a fixed order; init is the std of a
-    normal draw, or "ones" / "zeros".  Layer weights start with "layers/"
+    normal draw, ("shared", std) for one draw broadcast over the leading L
+    axis (the reference gives every layer the same initial router and
+    experts), or "ones" / "zeros".  Layer weights start with "layers/"
     and carry a leading L axis."""
     hd, h, hkv, d, L, f = (cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model,
                            cfg.n_layers, cfg.d_ff)
@@ -130,9 +144,16 @@ def _param_specs(cfg: TransformerConfig) -> dict:
     spec["layers/mlp_norm"] = ((L, d), "ones")
     if cfg.norm == "layernorm":
         spec["layers/mlp_norm_bias"] = ((L, d), "zeros")
-    spec["layers/wi_gate"] = ((L, d, f), s)
-    spec["layers/wi_up"] = ((L, d, f), s)
-    spec["layers/wo_mlp"] = ((L, f, d), f ** -0.5)
+    if cfg.is_moe:
+        e = cfg.num_experts
+        spec["layers/router"] = ((L, d, e), ("shared", s))
+        spec["layers/moe_wi_gate"] = ((L, e, d, f), ("shared", s))
+        spec["layers/moe_wi_up"] = ((L, e, d, f), ("shared", s))
+        spec["layers/moe_wo"] = ((L, e, f, d), ("shared", f ** -0.5))
+    else:
+        spec["layers/wi_gate"] = ((L, d, f), s)
+        spec["layers/wi_up"] = ((L, d, f), s)
+        spec["layers/wo_mlp"] = ((L, f, d), f ** -0.5)
     spec["embed"] = ((cfg.vocab_size, d), 1.0)
     spec["final_norm"] = ((d,), "ones")
     if cfg.norm == "layernorm":
@@ -154,6 +175,9 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
             t = torch.ones(shape, dtype=cfg.pdtype)
         elif init == "zeros":
             t = torch.zeros(shape, dtype=cfg.pdtype)
+        elif isinstance(init, tuple):
+            one = torch.randn(shape[1:], generator=gen, dtype=cfg.pdtype)
+            t = (one * init[1]).to(device).expand(shape).contiguous()
         else:
             t = torch.randn(shape, generator=gen, dtype=cfg.pdtype) * init
         group, _, leaf = name.rpartition("/")
@@ -272,8 +296,20 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
                          q_offset=q_offset, kv_len=kv_len)
     x = x + cfg.residual_scale * (attn.reshape(b, s, h * hd) @ lp["wo"])
     h2 = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_bias"))
-    mlp = swiglu(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
-    return x + cfg.residual_scale * mlp
+    return x + cfg.residual_scale * _mlp(cfg, lp, h2)
+
+
+def _mlp(cfg, lp, h):
+    """The block's FFN: the expert FFN over all B * S tokens of the call
+    (capacity and drops are per call, as in the reference), or SwiGLU."""
+    if cfg.is_moe:
+        b, s, d = h.shape
+        moe_params = {"router": lp["router"], "wi_gate": lp["moe_wi_gate"],
+                      "wi_up": lp["moe_wi_up"], "wo": lp["moe_wo"]}
+        return moe_ffn(h.reshape(b * s, d), moe_params,
+                       num_experts=cfg.num_experts, top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor).reshape(b, s, d)
+    return swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
 
 
 def _embed(cfg, params, tokens):

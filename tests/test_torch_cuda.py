@@ -1,9 +1,9 @@
 """Card-only tests of the PyTorch port: the CUDA decode-attention (B1,
 B2), flash-attention (B3) and RG-LRU scan (B4) kernels against their
 plain versions at the full widths of the demo LM and recurrentgemma-2b,
-and the engine on the card.  Each skips, with its reason, where there is
-no CUDA device; the file imports no JAX, so it also runs on a machine
-without it:
+and the engines on the card (the MoE and xLSTM families too).  Each
+skips, with its reason, where there is no CUDA device; the file imports
+no JAX, so it also runs on a machine without it:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -582,4 +582,60 @@ def test_rglru_engine_on_card_through_the_kernels(cuda_device):
             cfg.n_groups * eng.stats["decode_blocks"] * block
         streams.append({r.uid: r.generated for r in done})
     assert streams[0] == streams[1]
+    assert all(len(v) == 9 for v in streams[0].values())
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_the_card_takes_no_host_sync_and_repeats_bitwise(
+        cuda_device):
+    """The MoE dispatch (sort, searchsorted, gathers) at granite-moe's
+    decode shape (T 16, E 32, k 8, bf16) under sync debug mode "error";
+    two calls bitwise equal (no atomics); f32 within 2e-5 of the CPU."""
+    from repro_torch.models.moe import moe_ffn
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(16, 256, generator=g)
+    p = {"router": torch.randn(256, 32, generator=g),
+         "wi_gate": torch.randn(32, 256, 64, generator=g) * 0.06,
+         "wi_up": torch.randn(32, 256, 64, generator=g) * 0.06,
+         "wo": torch.randn(32, 64, 256, generator=g) * 0.12}
+    kw = dict(num_experts=32, top_k=8)
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(cuda_device, dt)
+        pd = {k: v.to(cuda_device, dt) for k, v in p.items()}
+        with no_host_sync(cuda_device):
+            a = moe_ffn(xd, pd, **kw)
+            b = moe_ffn(xd, pd, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), moe_ffn(x, p, **kw), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m"])
+def test_moe_and_xlstm_engines_on_card_equal_the_cpu(cuda_device, arch):
+    """Reduced widths (MoE at head_dim 64, which B1 takes), f32: the
+    card's token streams equal the CPU's, decode_block 1 == 8."""
+    over = {"compute_dtype": "float32"}
+    if arch != "xlstm-350m":
+        over["head_dim"] = 64
+    cfg = registry.get_reduced_config(arch, **over)
+    fns = registry.model_fns(cfg)
+    cpu = fns.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, 6)]
+    streams = []
+    for dev, block in (("cpu", 4), (cuda_device, 1), (cuda_device, 8)):
+        params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in cpu.items()}
+        eng = ServingEngine(cfg, fns, params,
+                            EngineConfig(max_batch=3, max_len=64, seed=7,
+                                         decode_block=block))
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=9,
+                               temperature=3.0 if uid % 2 else 0.0))
+        streams.append({r.uid: r.generated for r in eng.run()})
+    assert streams[0] == streams[1] == streams[2]
     assert all(len(v) == 9 for v in streams[0].values())

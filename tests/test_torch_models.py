@@ -74,8 +74,8 @@ def test_init_params_shapes_and_count_match_reference(full):
 
 
 def test_unported_branches_raise():
-    cfg = treg.get_reduced_config(ARCH, num_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    cfg = treg.get_reduced_config(ARCH, mlp_act="gelu")
+    with pytest.raises(NotImplementedError, match="mlp_act"):
         ttf.init_params(torch.Generator(), cfg, "cpu")
     with pytest.raises(NotImplementedError, match="parallel_block"):
         ttf.forward({}, torch.zeros(1, 2, dtype=torch.long),
