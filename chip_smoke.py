@@ -7,6 +7,11 @@
   python3 chip_smoke.py --phase 11   # phases 1 and 11-13 only, no result line
   python3 chip_smoke.py --phase 14   # phases 1, 2 at H 16/8 and 14-16 only,
                                      # no result line
+  python3 chip_smoke.py --phase 17   # phases 1, the new rows of 2 and 2b
+                                     # and 17-19 only, no result line
+
+Each phase header prints the wall clock and the seconds the previous
+phase took.
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    src/repro_torch/kernels/{decode_attention,flash_attention,rglru_scan}/
@@ -27,7 +32,11 @@
    each (row, head)'s largest |plain output|, at most 2e-2, and never
    below 2 bf16 ulps of the element's |plain output|.  The same at
    granite-moe's decode widths (H 16, Hkv 8: a GQA group of 2) at the
-   serve run's shape, in rows of their own.
+   serve run's shape, in rows of their own, and so at the decode widths
+   of phase 17 (the new rows): stablelm-12b's (H 32/8, dh 160: `_dh160`),
+   command-r-35b's (H 64/8, dh 128: `_dh128`), qwen2.5-32b's (H 40/8, dh
+   128, an odd query group of 5: `_h40`) and minicpm-2b's (H 36/36, dh
+   64: `_mha`).
    2b. The flash-attention forward kernel (B3) against its plain version:
    the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16, causal and
    not), S 1000, MHA, MQA, dh 128, bf16 within B1's scaled limit and f32
@@ -36,6 +45,10 @@
    in 128) must fail the bf16 limit.  Gradients of q, k, v through the
    autograd path against autograd through the plain version.  Times at
    the training shape beside the FLOP bound, the plain version and SDPA.
+   The new rows: the same checks (no planted fault, no gradients) and
+   times at qwen2-vl-2b's training shape (B 8, H 12/2, S 1024, dh 128:
+   `flash_attention_dh128`) and musicgen-medium's (H 24/24, dh 64:
+   `flash_attention_mha`).
    2c. The RG-LRU scan kernel (B4) against its plain version, f32
    bitwise: the serve prefill shape (16, 256, 2560), the long prefill's
    (2, 2048, 2560), B = 1 (1, 2048, 2560) and (3, 1001, 2600) on the TMA
@@ -63,8 +76,8 @@
    streams, each kernel launched n_layers x sub-steps times, no host sync
    inside a decode block (the engine runs it under sync debug mode
    "error").
-   One more dense run under torch.profiler: device busy share, top
-   kernels by device time.
+   One more dense run of 16 requests x 16 tokens under torch.profiler:
+   device busy share, top kernels by device time.
 4. Reference: a small config (reduced widths, head_dim 64) in f32 on the
    card against the same model on the CPU, logits within 1e-3.
 5. Train: suncatcher-lm-100m at full width, bf16 compute, f32 masters,
@@ -81,17 +94,18 @@
    A reduced f32 config (head_dim 64): one train step on the card against
    the CPU.
 6. Serve recurrentgemma-2b at full width (26 layers, d 2560, MQA 10/1,
-   head_dim 256, vocab 256000, window 2048) in bf16, random weights from
-   seed 0, through ServingEngine: the workload of phase 3, greedy and T
-   0.7.  Every request completes; B4 launched 18 times per prefill call
-   (2 x 8 groups + 2 tail blocks) and B1 8 times per sub-step;
-   decode_block 1 == 8 token streams; a finished and a never-used row
-   keep their whole state bitwise across a decode block.  One run under
-   torch.profiler.  Then a long run that wraps the ring: 4 requests of
-   2000-2040 prompt tokens on 4 slots, max_len 4096, 64 new tokens (B4 at
-   the 2048 bucket, positions past W = 2048, B1 on full rings), and the
-   same run once more under torch.profiler: device time per sub-step,
-   B1's share of it, and B4's device time over its prefill's 18 launches.
+   head_dim 256, vocab 256000, window 2048) in bf16, random weights drawn
+   on the card from seed 0, through ServingEngine: the workload of phase
+   3, greedy and T 0.7.  Every request completes; B4 launched 18 times
+   per prefill call (2 x 8 groups + 2 tail blocks) and B1 8 times per
+   sub-step; decode_block 1 == 8 token streams; a finished and a
+   never-used row keep their whole state bitwise across a decode block.
+   A run of 16 requests x 16 tokens under torch.profiler.  Then a long
+   run that wraps the ring: 4 requests of 2000-2040 prompt tokens on 4
+   slots, max_len 4096, 64 new tokens (B4 at the 2048 bucket, positions
+   past W = 2048, B1 on full rings), and its prefill once more with 16 new
+   tokens under torch.profiler: device time per sub-step, B1's share of
+   it, and B4's device time over its prefill's 18 launches.
 7. Reference: recurrentgemma's reduced config at d_model 256 (head_dim
    64, window 16), f32, on the card against the CPU: prefill, then 24
    decode steps past the window, logits within 1e-3.
@@ -181,6 +195,35 @@
 16. Reference: the reduced granite-moe and qwen3-moe (head_dim 64) and
    xlstm configs, f32, on the card against the CPU: prefill and 8 decode
    steps, logits within 1e-3, and an engine's token streams equal.
+17. Serve the four token LMs of the remaining transformer branches at
+   their published widths, cut in depth only, in bf16 (random weights
+   drawn on the card from seed 0, the embedding scaled by 0.1, divided
+   by the config's embed_scale: minicpm-2b's 12):
+   minicpm-2b at its full 40 layers (MHA 36/36, mu-P scales), stablelm-12b
+   at 8 of 40 (LayerNorm, H 32/8, dh 160), command-r-35b at 4 of 40 (the
+   parallel block, vocab 256000 tied, logit_scale 0.0625) and qwen2.5-32b
+   at 6 of 64 (QKV bias, H 40/8); phase 3's workload (greedy and T 0.7
+   alternating), dense and paged, stablelm also at decode_block 1.  Every
+   request completes; paged == dense token streams; decode_block 1 == 8;
+   B1 or B2 launched n_layers x sub-steps times (the engine runs each
+   decode block under sync debug mode "error").  tok/s, host syncs per
+   token and peak memory per run; minicpm's 16 requests x 16 tokens under
+   torch.profiler.
+18. Train musicgen-medium (12 of 48 layers: 4 codebooks, sinusoidal
+   positions, GELU MLP, MHA 24/24) and qwen2-vl-2b (8 of 28: M-RoPE over
+   "vlm" batches' (3, B, S) positions, H 12/2, dh 128) at their published
+   widths, bf16 compute, f32 masters drawn on the card, seq 1024, batch
+   8, the port's SyntheticLM of their kind, under
+   torch.use_deterministic_algorithms(True): run_fused for 8 steps (one
+   drain), then run for 8 from the same state.  Every loss finite;
+   run == run_fused losses and final state bitwise; B3 launched 2 x
+   n_layers x 8 times per run; no host sync inside the fused block.
+19. Reference: the six configs' reduced widths at head_dim 64 (qwen2-vl's
+   M-RoPE sections 16/8/8), f32, on the card against the CPU: the loss of
+   one "tokens", "codebooks" or "vlm" batch (B3), a prefill and 8 decode
+   steps (B1; musicgen's (B, 4, V) logits) within 1e-3 with equal greedy
+   tokens, and the token LMs' engines (dense and paged) giving the CPU's
+   token streams.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -191,7 +234,9 @@ and B2 at H 16 / Hkv 8) with their launches on their main paths (B1's
 dh-64 row phases 3, 9, 11 and 12; B2's phases 3 and 11; B3's phases 5,
 8 and 9; B4's serve row and B1's dh-256 serve-rings row phase 6's
 16-slot runs and phase 12; the long rows phase 6's long runs; the H 16
-rows phase 14), errors, times and bounds; B4's rows also name their copy
+rows phase 14; the `_mha`, `_dh160`, `_dh128` and `_h40` rows phase 17's
+minicpm-2b, stablelm-12b, command-r-35b and qwen2.5-32b runs; the new B3
+rows phase 18), errors, times and bounds; B4's rows also name their copy
 path.
 """
 import gc
@@ -216,9 +261,21 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 H, HKV, DH = 12, 4, 64
 
 
-def phase(title):
-    """A phase's header, with the wall clock."""
-    print(f"{title} [{time.strftime('%H:%M:%S')}]", flush=True)
+_PHASE_T0 = []
+
+
+def phase(title=None):
+    """A phase's header, with the wall clock and the seconds the previous
+    phase took; with no title, only those seconds."""
+    now = time.perf_counter()
+    took = now - _PHASE_T0[-1] if _PHASE_T0 else None
+    _PHASE_T0.append(now)
+    if title is None:
+        print(f"  last phase took {took:.1f} s", flush=True)
+        return
+    print(f"{title} [{time.strftime('%H:%M:%S')}"
+          + (f", previous phase {took:.1f} s" if took is not None else "")
+          + "]", flush=True)
 
 
 def fail(msg):
@@ -299,9 +356,9 @@ def bound(lens, ps, dtype, itemsize, b, h=H, hkv=HKV, dh=DH):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
-    """B1 and B2 at H `h`, Hkv `hkv`, dh 64 over `cases` of (B, M,
-    kv_len ceiling, pool pages at page 16), the first being the serve
+def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix="", dh=DH):
+    """B1 and B2 at H `h`, Hkv `hkv`, head_dim `dh` over `cases` of (B,
+    M, kv_len ceiling, pool pages at page 16), the first being the serve
     run's shape; returns their rows, timed there, named with `suffix`."""
     import torch.nn.functional as F
 
@@ -320,9 +377,9 @@ def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             g = torch.Generator().manual_seed(b * 7 + m)
-            q = torch.randn(b, h, DH, generator=g).to(dev, dt)
-            kc = torch.randn(b, m, hkv, DH, generator=g).to(dev, dt)
-            vc = torch.randn(b, m, hkv, DH, generator=g).to(dev, dt)
+            q = torch.randn(b, h, dh, generator=g).to(dev, dt)
+            kc = torch.randn(b, m, hkv, dh, generator=g).to(dev, dt)
+            vc = torch.randn(b, m, hkv, dh, generator=g).to(dev, dt)
             lens_l = torch.randint(1, cap + 1, (b,), generator=g).tolist()
             lens_l[:4] = [0, 33, cap, cap - 1]
             lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
@@ -334,8 +391,8 @@ def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
             check(share <= 1, f"B1 {dtype} B={b} M={m}: max abs err {err}, "
                   f"{share:.3f} of its limit")
             check(bool((out[0] == 0).all()), "B1 kv_len == 0 row not zero")
-            line = (f"  H {h}/{hkv} B={b:3d} M={m} {dtype:8s} B1 err "
-                    f"{err:.3e} ({share:.3f} of the limit)")
+            line = (f"  H {h}/{hkv} dh {dh} B={b:3d} M={m} {dtype:8s} B1 "
+                    f"err {err:.3e} ({share:.3f} of the limit)")
             perr = {}
             for ps in (16, 64):
                 # each row's live pages on distinct, shuffled physical
@@ -349,11 +406,11 @@ def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
                 rows_t = torch.tensor(rows_, device=dev)
                 cols_t = torch.tensor(cols_, device=dev)
                 phys = phys.to(dev)
-                kp = torch.zeros(n_pool + 1, ps, hkv, DH, dtype=dt,
+                kp = torch.zeros(n_pool + 1, ps, hkv, dh, dtype=dt,
                                  device=dev)
                 vp = torch.zeros_like(kp)
-                kp[phys] = kc.reshape(b, mp, ps, hkv, DH)[rows_t, cols_t]
-                vp[phys] = vc.reshape(b, mp, ps, hkv, DH)[rows_t, cols_t]
+                kp[phys] = kc.reshape(b, mp, ps, hkv, dh)[rows_t, cols_t]
+                vp[phys] = vc.reshape(b, mp, ps, hkv, dh)[rows_t, cols_t]
                 ptab = torch.full((b, mp), n_pool, dtype=torch.int32,
                                   device=dev)
                 ptab[rows_t, cols_t] = phys.to(torch.int32)
@@ -393,7 +450,7 @@ def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
                         iters=20)
     sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, enable_gqa=True))
-    bms, by = bound(lens_l, 0, "bfloat16", 2, q.shape[0], h, hkv)
+    bms, by = bound(lens_l, 0, "bfloat16", 2, q.shape[0], h, hkv, dh)
     rows.append({"name": "decode_attention" + suffix, "route": "cuda",
                  "source": "src/repro_torch/kernels/decode_attention/csrc/"
                            "decode_attention.cu",
@@ -405,7 +462,7 @@ def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
     b2_ms = timer.ms(lambda: paged_decode_attention(q, kp, vp, ptab, lens))
     plain2_ms = timer.ms(lambda: paged_decode_attention_reference(
         q, kp, vp, ptab, lens), iters=20)
-    bms, by = bound(lens_l, ps, "bfloat16", 2, q.shape[0], h, hkv)
+    bms, by = bound(lens_l, ps, "bfloat16", 2, q.shape[0], h, hkv, dh)
     rows.append({"name": "paged_decode_attention" + suffix,
                  "route": "cuda",
                  "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -415,11 +472,11 @@ def kernel_phase(torch, timer, h=H, hkv=HKV, cases=None, suffix=""):
                  "max_abs_err": perr, "ms": b2_ms, "plain_ms": plain2_ms,
                  "bound_ms": bms, "bound_by": by, "library_ms": None})
     for r in rows:
-        print(f"  {r['name']} @ H {h}/{hkv} B=16 M=512 bf16 (ps 16 for B2): "
-              f"{r['ms'] * 1e3:.2f} us | bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}) | plain {r['plain_ms'] * 1e3:.2f} us | "
+        print(f"  {r['name']} @ H {h}/{hkv} dh {dh} B=16 M=512 bf16 (ps 16 "
+              f"for B2): {r['ms'] * 1e3:.2f} us | bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) | plain {r['plain_ms'] * 1e3:.2f} us | "
               f"SDPA {r['library_ms'] and r['library_ms'] * 1e3}", flush=True)
-    print(f"  B1 / SDPA at H {h}/{hkv}, dh 64: {b1_ms / sdpa_ms:.3f} | "
+    print(f"  B1 / SDPA at H {h}/{hkv}, dh {dh}: {b1_ms / sdpa_ms:.3f} | "
           f"B2 / B1: {b2_ms / b1_ms:.3f}", flush=True)
     return rows
 
@@ -436,7 +493,18 @@ def flash_bound(b, h, hkv, sq, skv, dh, causal, itemsize):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_phase(torch, timer):
+# B3's timed shapes: the demo LM's training shape (the main row), then
+# qwen2-vl-2b's (H 12/2, dh 128: a GQA group of 6) and musicgen-medium's
+# (H 24/24, MHA) at seq 1024, batch 8 (phase 18), each a row of its own
+FLASH_ROWS = (("flash_attention", (8, 12, 4, 1024, 64)),
+              ("flash_attention_dh128", (8, 12, 2, 1024, 128)),
+              ("flash_attention_mha", (8, 24, 24, 1024, 64)))
+
+
+def flash_phase(torch, timer, names, more=True):
+    """B3 against its plain version at the shapes of the FLASH_ROWS in
+    `names`, and with `more` at further shapes and through autograd;
+    returns those rows, timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_reference,
@@ -466,10 +534,13 @@ def flash_phase(torch, timer):
         return torch.einsum("bhqk,bhkd->bhqd", probs, vh).to(q.dtype
                                                              ).transpose(1, 2)
 
-    train_err = None
-    for b, h, hkv, s, dh in ((8, 12, 4, 1024, 64), (2, 12, 4, 1000, 64),
-                             (2, 12, 12, 256, 64), (2, 12, 1, 256, 64),
-                             (2, 8, 2, 200, 128)):
+    timed = [(n, shape) for n, shape in FLASH_ROWS if n in names]
+    shapes = [shape for _, shape in timed]
+    if more:
+        shapes += [(2, 12, 4, 1000, 64), (2, 12, 12, 256, 64),
+                   (2, 12, 1, 256, 64), (2, 8, 2, 200, 128)]
+    errs = {}
+    for b, h, hkv, s, dh in shapes:
         for dtype in ("bfloat16", "float32"):
             for causal in (True, False):
                 q, k, v = inputs(b, h, hkv, s, dh, getattr(torch, dtype),
@@ -489,7 +560,9 @@ def flash_phase(torch, timer):
                 print(f"  {tag}: max abs err {err:.3e} ({share:.3f} of the "
                       f"limit); two calls bitwise equal", flush=True)
                 if (b, s, dtype, causal) == (8, 1024, "bfloat16", True):
-                    train_err = err
+                    errs[(b, h, hkv, s, dh)] = err
+                if (b, h, hkv, s, dh, dtype, causal) == (
+                        8, 12, 4, 1024, 64, "bfloat16", True):
                     # the plain version leaving out keys 127, 255, ...:
                     # what a kernel that lost one key per tile gives
                     planted = plain(q, k, v, causal, keep=lambda kpos:
@@ -502,8 +575,37 @@ def flash_phase(torch, timer):
                           f"{p_err:.3e} ({p_share:.3f} of the limit, "
                           f"caught)", flush=True)
 
-    # gradients: autograd through the kernel's Function against autograd
-    # through the plain version (the backward is the plain formula's VJP)
+    if more:
+        flash_gradients(torch, inputs, plain)
+    rows = []
+    for name, (b, h, hkv, s, dh) in timed:
+        q, k, v = inputs(b, h, hkv, s, dh, torch.bfloat16, s + dh)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        ms = timer.ms(lambda: flash_attention(q, k, v))
+        plain_ms = timer.ms(lambda: plain(q, k, v, True), iters=20)
+        sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True))
+        bms, by = flash_bound(b, h, hkv, s, s, dh, True, 2)
+        print(f"  {name} @ B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 causal: "
+              f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}) | plain "
+              f"{plain_ms * 1e3:.2f} us | SDPA {sdpa_ms * 1e3:.2f} us | "
+              f"B3 / SDPA {ms / sdpa_ms:.3f}", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/flash_attention/"
+                               "csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/"
+                                 "kernel.py:32",
+                     "max_abs_err": errs[(b, h, hkv, s, dh)], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": sdpa_ms})
+    return rows
+
+
+def flash_gradients(torch, inputs, plain):
+    """Autograd through B3's Function against autograd through the plain
+    version (the backward is the plain formula's VJP)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = torch.device("cuda")
     q, k, v = (t.requires_grad_() for t in inputs(2, 12, 4, 256, 64,
                                                   torch.float32, 1))
     go = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)
@@ -514,26 +616,6 @@ def flash_phase(torch, timer):
     check(gerr <= 1e-5, f"B3 gradients differ from the plain VJP by {gerr}")
     print(f"  B3 gradients (q, k, v; f32, S 256) vs autograd through the "
           f"plain version: max abs err {gerr:.3e} (tol 1e-5)", flush=True)
-
-    # times at the training shape
-    b, h, hkv, s, dh = 8, 12, 4, 1024, 64
-    q, k, v = inputs(b, h, hkv, s, dh, torch.bfloat16, s + dh)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    ms = timer.ms(lambda: flash_attention(q, k, v))
-    plain_ms = timer.ms(lambda: plain(q, k, v, True), iters=20)
-    sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True))
-    bms, by = flash_bound(b, h, hkv, s, s, dh, True, 2)
-    print(f"  flash_attention @ B=8 H=12 Hkv=4 S=1024 dh=64 bf16 causal: "
-          f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}) | plain "
-          f"{plain_ms * 1e3:.2f} us | SDPA {sdpa_ms * 1e3:.2f} us",
-          flush=True)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-            "max_abs_err": train_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms}
 
 
 def serve_phase(torch):
@@ -561,14 +643,14 @@ def serve_phase(torch):
           "prompt lengths outside 4-200")
     dense_pages = slots * max_len // 16
 
-    def run(page_size, temp):
+    def run(page_size, temp, ps=prompts, new=max_new):
         ecfg = EngineConfig(max_batch=slots, max_len=max_len,
                             decode_block=block, page_size=page_size,
                             pool_pages=dense_pages // 2 if page_size else None,
                             prefix_cache=8 if page_size else 0)
         eng = ServingEngine(cfg, fns, params, ecfg)
-        for uid, p in enumerate(prompts):
-            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=max_new,
+        for uid, p in enumerate(ps):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=new,
                                temperature=temp))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -627,7 +709,10 @@ def serve_phase(torch):
                  zip(results[(0, 0.0)][uid], results[(0, 0.7)][uid]))
     print(f"  T=0.7 vs greedy: {differ} of {n_req * max_new} tokens differ "
           f"(random weights give near one-hot logits)", flush=True)
-    profile_window(torch, "dense, greedy", lambda: run(0, 0.0)[2])
+    # a short window (one fill of 16 requests x 16 tokens): the trace's
+    # processing grows with its events
+    profile_window(torch, "dense, greedy, 16 requests x 16 tokens",
+                   lambda: run(0, 0.0, prompts[:16], 16)[2])
 
     # full-width logits: finite, of the expected shape
     cache = fns.init_cache(cfg, 2, 64, device=dev)
@@ -1111,14 +1196,15 @@ def rglru_serve_phase(torch):
     cfg = registry.get_config("recurrentgemma-2b")
     fns = registry.model_fns(cfg)
     t0 = time.perf_counter()
-    params = fns.init(torch.Generator().manual_seed(0), cfg, dev)
+    # drawn on the card: 2.9B draws of the CPU generator take ~25 s
+    params = fns.init(torch.Generator(dev).manual_seed(0), cfg, dev)
     n_params = sum(t.numel() for grp in params.values()
                    for t in (grp.values() if isinstance(grp, dict) else [grp]))
     check(n_params == cfg.param_count(), "param count")
     params = fns.cast_params(params, cfg)     # one bf16 copy for every run
     torch.cuda.synchronize()
-    print(f"  {n_params / 1e9:.3f}B params from seed 0 on the card (f32 "
-          f"masters dropped after the bf16 cast): "
+    print(f"  {n_params / 1e9:.3f}B params from seed 0 drawn on the card "
+          f"(f32 masters dropped after the bf16 cast): "
           f"{time.perf_counter() - t0:.1f} s | "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
@@ -1186,8 +1272,8 @@ def rglru_serve_phase(torch):
                  zip(streams[(0.0, 8)][uid], streams[(0.7, 8)][uid]))
     print(f"  T=0.7 vs greedy: {differ} of {n_req * max_new} tokens differ",
           flush=True)
-    profile_window(torch, "recurrentgemma-2b, greedy",
-                   lambda: run(0.0, 8, prompts)[2],
+    profile_window(torch, "recurrentgemma-2b, greedy, 16 requests x 16 "
+                   "tokens", lambda: run(0.0, 8, prompts[:16], new=16)[2],
                    watch=("rglru_scan_kernel", "decode_split_kernel",
                           "decode_merge_kernel"))
 
@@ -1223,21 +1309,27 @@ def rglru_serve_phase(torch):
             for n in (2000, 2013, 2027, 2040)]
     serve = tuple(totals)
 
-    def long_run():
-        return run(0.7, 8, long, max_len=4096, slots=4, new=64)
+    def long_run(new=64):
+        return run(0.7, 8, long, max_len=4096, slots=4, new=new)
 
     eng = long_run()[0]
     top = int(eng.cache["pos"].max())
     check(top > cfg.window, f"long run ended at pos {top} <= {cfg.window}")
     print(f"  long run: 4 x 2000-2040 prompt tokens + 64 new, bucket 2048, "
           f"positions to {top} (ring of {cfg.window} wrapped)", flush=True)
-    # the profiled run repeats this one: the same blocks and sub-steps
-    sub = eng.stats["decode_blocks"] * 8
     del eng
-    prof = profile_window(torch, "long run", lambda: long_run()[2],
+    # the profiled run repeats its prefill with 16 new tokens (2 blocks)
+    held = []
+
+    def short_long_run():
+        eng, _, dt, _ = long_run(16)
+        held.append(eng.stats["decode_blocks"] * 8)
+        return dt
+    prof = profile_window(torch, "long run, 16 new tokens", short_long_run,
                           watch=("decode_split_kernel", "decode_merge_kernel",
                                  "rglru_scan_kernel"))
     if prof:
+        sub = held[0]
         b1_ms = sum(prof[k][0] for k in ("decode_split_kernel",
                                          "decode_merge_kernel")) * 1e3
         b4_ms, b4_n = prof["rglru_scan_kernel"]
@@ -1670,13 +1762,14 @@ def plane_prompts(np, vocab, n_req, seed):
     return out
 
 
-def context_params(torch, fns, cfg, dev, seed=0):
-    """Random params from a seed with the tied embedding scaled by 0.1: at
-    the init scale the embedding dominates the residual stream and a
-    random model repeats its input token, so its tokens would not show a
-    corrupted migration; scaled, every token depends on the context."""
-    params = fns.init(torch.Generator().manual_seed(seed), cfg, dev)
-    params["embed"].mul_(0.1)
+def context_params(torch, fns, cfg, dev, seed=0, scale=0.1):
+    """Random params from a seed, drawn on `dev`'s own generator, with the
+    tied embedding scaled by 0.1: at the init scale the embedding
+    dominates the residual stream and a random model repeats its input
+    token, so its tokens would not show a corrupted migration; scaled,
+    every token depends on the context."""
+    params = fns.init(torch.Generator(dev).manual_seed(seed), cfg, dev)
+    params["embed"].mul_(scale)
     return params
 
 
@@ -1889,7 +1982,8 @@ def mixed_plane_phase(torch):
     rg_params = rg_fns.cast_params(context_params(torch, rg_fns, rg_cfg, dev),
                                    rg_cfg)
     torch.cuda.synchronize()
-    print(f"  recurrentgemma-2b params from seed 0, cast to bf16: "
+    print(f"  recurrentgemma-2b params from seed 0 drawn on the card, cast "
+          f"to bf16: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     pods, slots, max_len, block, n_req, max_new = 2, 8, 512, 8, 16, 32
     ecfg = EngineConfig(max_batch=slots, max_len=max_len, decode_block=block)
@@ -2096,6 +2190,59 @@ def _family_requests(Request, prompts, new):
             for i, p in enumerate(prompts)]
 
 
+def _serve_config(EngineConfig, page_size, block, slots=16, max_len=512):
+    """Phase 3's engine: dense, or paged at `page_size` with a pool half
+    the dense footprint and a prefix cache of 8."""
+    return EngineConfig(
+        max_batch=slots, max_len=max_len, decode_block=block,
+        page_size=page_size,
+        pool_pages=slots * max_len // 16 // 2 if page_size else None,
+        prefix_cache=8 if page_size else 0)
+
+
+def _serve_run(torch, cfg, fns, params, page_size, block, prompts, new,
+               tag):
+    """One ServingEngine run of `prompts` under `_serve_config`: every
+    request completes with `new` tokens, and B1 (dense) or B2 (paged)
+    launches n_layers x sub-steps times, decode blocks under sync debug
+    mode "error".  Prints tok/s, host syncs per token and peak memory;
+    returns ({uid: tokens}, (B1, B2 launches), the run's seconds)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(cfg, fns, params,
+                        _serve_config(EngineConfig, page_size, block))
+    for r in _family_requests(Request, prompts, new):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = (decode_attention.launches, paged_decode_attention.launches)
+    s = eng.stats
+    check(len(done) == len(prompts) and all(len(r.generated) == new
+                                            for r in done),
+          f"{tag}: not every request completed (page {page_size}, block "
+          f"{block})")
+    sub = s["decode_blocks"] * block
+    want = (0, cfg.n_layers * sub) if page_size else (cfg.n_layers * sub, 0)
+    check(got == want, f"{tag}: kernel launches (B1, B2) {got} != {want} "
+          f"(n_layers x {sub} sub-steps)")
+    print(f"  {tag} {'paged' if page_size else 'dense'} decode_block "
+          f"{block}: {s['tokens']} tokens in {dt:.3f} s = "
+          f"{s['tokens'] / dt:.1f} tok/s | "
+          f"{s['host_syncs'] / s['tokens']:.4f} host syncs/token | "
+          f"{s['decode_blocks']} blocks | launches B1 {got[0]} B2 "
+          f"{got[1]} | peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    return {r.uid: r.generated for r in done}, got, dt
+
+
 def moe_serve_phase(torch):
     """granite-moe-1b-a400m at full width through ServingEngine (phase
     14): the phase 3 workload, dense and paged, decode_block 8 and 1.
@@ -2103,8 +2250,6 @@ def moe_serve_phase(torch):
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      paged_decode_attention)
     from repro_torch.models import registry
     from repro_torch.models.moe import (capacity_of, moe_ffn, router_topk,
                                         slot_table)
@@ -2130,58 +2275,19 @@ def moe_serve_phase(torch):
                               np.random.default_rng(0))
     check(min(map(len, prompts)) >= 4 and max(map(len, prompts)) <= 200,
           "prompt lengths outside 4-200")
-    dense_pages = slots * max_len // 16
-
-    def ecfg(page_size, block):
-        return EngineConfig(
-            max_batch=slots, max_len=max_len, decode_block=block,
-            page_size=page_size,
-            pool_pages=dense_pages // 2 if page_size else None,
-            prefix_cache=8 if page_size else 0)
 
     def run(page_size, block, ps=prompts, new=max_new):
-        eng = ServingEngine(cfg, fns, params, ecfg(page_size, block))
-        for r in _family_requests(Request, ps, new):
-            eng.submit(r)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        decode_attention.launches = 0
-        paged_decode_attention.launches = 0
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        got = (decode_attention.launches, paged_decode_attention.launches)
-        s = eng.stats
-        check(len(done) == len(ps) and all(len(r.generated) == new
-                                           for r in done),
-              f"not every request completed (page {page_size}, block "
-              f"{block})")
-        sub = s["decode_blocks"] * block
-        want = ((0, cfg.n_layers * sub) if page_size
-                else (cfg.n_layers * sub, 0))
-        check(got == want, f"kernel launches (B1, B2) {got} != {want} "
-              f"(n_layers x {sub} sub-steps)")
-        print(f"  serve {'paged' if page_size else 'dense'} decode_block "
-              f"{block}: {s['tokens']} tokens in {dt:.3f} s = "
-              f"{s['tokens'] / dt:.1f} tok/s | "
-              f"{s['host_syncs'] / s['tokens']:.4f} host syncs/token | "
-              f"{s['decode_blocks']} blocks | launches B1 {got[0]} B2 "
-              f"{got[1]} | peak "
-              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
-              flush=True)
-        return eng, {r.uid: r.generated for r in done}, dt, got
+        return _serve_run(torch, cfg, fns, params, page_size, block, ps,
+                          new, "serve")
 
     run(0, 8, prompts[:4], 4)            # warm-up: cuBLAS, allocator
     totals = [0, 0]
     streams = {}
     for page_size in (0, 16):
         for block in (8, 1):
-            eng, streams[(page_size, block)], _, got = run(page_size,
-                                                           block)
+            streams[(page_size, block)], got, _ = run(page_size, block)
             totals[0] += got[0]
             totals[1] += got[1]
-            del eng
         check(streams[(page_size, 1)] == streams[(page_size, 8)],
               f"decode_block 1 != 8 token streams (page {page_size})")
     dense = streams[(0, 8)]
@@ -2197,7 +2303,8 @@ def moe_serve_phase(torch):
           flush=True)
 
     # inactive rows: one request finished at prefill, one slot never used
-    eng = ServingEngine(cfg, fns, params, ecfg(0, 8))
+    eng = ServingEngine(cfg, fns, params,
+                        _serve_config(EngineConfig, 0, 8))
     for uid, new in enumerate((1, 20, 20)):
         eng.submit(Request(uid=uid, prompt=prompts[uid],
                            max_new_tokens=new))
@@ -2534,15 +2641,323 @@ def family_paths(torch):
     return launches
 
 
+# phase 17's configs: arch -> (layers kept, B1/B2 row suffix of phase 2)
+BRANCH_SERVE = {"minicpm-2b": (40, "_mha"), "stablelm-12b": (8, "_dh160"),
+                "command-r-35b": (4, "_dh128"), "qwen2.5-32b": (6, "_h40")}
+# phase 2's rows at their decode widths: suffix -> (H, Hkv, dh)
+BRANCH_ROWS = {"_dh160": (32, 8, 160), "_dh128": (64, 8, 128),
+               "_h40": (40, 8, 128), "_mha": (36, 36, 64)}
+
+
+def branch_serve_phase(torch, arch):
+    """Phase 17, one config: published widths, depth cut to the layers of
+    BRANCH_SERVE, random bf16 weights drawn on the card from seed 0 with
+    the embedding x 0.1; phase 3's workload dense and paged (stablelm-12b
+    also at decode_block 1).  Returns (B1 launches, B2 launches)."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.train.tree import tree_leaves
+    dev = torch.device("cuda")
+    full = registry.get_config(arch)
+    cfg = registry.get_config(arch, n_layers=BRANCH_SERVE[arch][0])
+    fns = registry.model_fns(cfg)
+    t0 = time.perf_counter()
+    # minicpm-2b multiplies its embedding by 12: scaled by 0.1 / 12, its
+    # rows enter the residual stream as the other configs' (x 0.1) do
+    params = context_params(torch, fns, cfg, dev,
+                            scale=0.1 / cfg.embed_scale)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == cfg.param_count(), f"{arch}: param count")
+    params = fns.cast_params(params, cfg)     # one bf16 copy for every run
+    torch.cuda.synchronize()
+    print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, d "
+          f"{cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.hd}, "
+          f"vocab {cfg.vocab_size}: {n_params / 1e9:.3f}B params (full "
+          f"depth {full.param_count() / 1e9:.3f}B) drawn on the card from "
+          f"seed 0, the embedding x {0.1 / cfg.embed_scale:.4g}, cast to "
+          f"bf16: "
+          f"{time.perf_counter() - t0:.1f} s | "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    n_req, max_new = 32, 32
+    prompts = _rglru_workload(np, cfg.vocab_size, n_req,
+                              np.random.default_rng(0))
+    check(min(map(len, prompts)) >= 4 and max(map(len, prompts)) <= 200,
+          "prompt lengths outside 4-200")
+
+    def run(page_size, block, ps=prompts, new=max_new):
+        return _serve_run(torch, cfg, fns, params, page_size, block, ps,
+                          new, arch)
+
+    run(0, 8, prompts[:4], 4)            # warm-up: cuBLAS, allocator
+    totals = [0, 0]
+    streams = {}
+    runs = [(0, 8), (16, 8)] + ([(0, 1)] if arch == "stablelm-12b" else [])
+    for page_size, block in runs:
+        streams[(page_size, block)], got, _ = run(page_size, block)
+        totals[0] += got[0]
+        totals[1] += got[1]
+    dense = streams[(0, 8)]
+    check(streams[(16, 8)] == dense,
+          f"{arch}: paged != dense token streams")
+    if (0, 1) in streams:
+        check(streams[(0, 1)] == dense,
+              f"{arch}: decode_block 1 != 8 token streams")
+    distinct = sorted(len(set(v)) for v in dense.values())
+    print(f"  {arch}: paged == dense token streams (bitwise)"
+          + ("; decode_block 1 == 8" if (0, 1) in streams else "")
+          + f"; greedy and T 0.7 alternate; distinct tokens per stream "
+          f"{distinct[0]}-{distinct[-1]}", flush=True)
+    if arch == "minicpm-2b":
+        profile_window(torch, f"{arch} dense, 16 requests x 16 tokens",
+                       lambda: run(0, 8, prompts[:16], 16)[2],
+                       watch=("decode_split_kernel", "decode_merge_kernel"))
+
+    # full-width logits from one decode call: finite, of the right shape
+    cache = fns.init_cache(cfg, 2, 64, device=dev)
+    logits, _ = fns.decode_step(params, cache, torch.tensor(
+        np.stack([prompts[0][:4], prompts[1][:4]]), device=dev), cfg)
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{arch}: logits")
+    return tuple(totals)
+
+
+# phase 18's configs: arch -> layers kept
+BRANCH_TRAIN = {"qwen2-vl-2b": 8, "musicgen-medium": 12}
+
+
+def branch_train_phase(torch, arch):
+    """Phase 18, one config: published widths, depth cut to BRANCH_TRAIN,
+    seq 1024, batch 8, the port's SyntheticLM of the arch's kind, random
+    f32 masters drawn on the card from seed 0, bf16 compute;
+    FaultTolerantTrainer.run_fused for 8 steps (one drain) and run for 8
+    from the same state, bitwise equal.  Returns B3's launches."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    from repro_torch.train import (AdamWConfig, DataConfig,
+                                   FaultTolerantTrainer, FTConfig,
+                                   SyntheticLM, TrainConfig, init_train_state,
+                                   make_fused_steps, make_train_step)
+    from repro_torch.train.tree import tree_paths
+    dev = torch.device("cuda")
+    full = registry.get_config(arch)
+    cfg = registry.get_config(arch, n_layers=BRANCH_TRAIN[arch])
+    fns = registry.model_fns(cfg)
+    kind = registry.input_kind(arch)
+    steps, k, seq, batch = 8, 8, 1024, 8
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3),
+                       schedule=registry.lr_schedule(arch), warmup_steps=2,
+                       total_steps=steps)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0,
+                                  n_codebooks=cfg.n_codebooks, kind=kind),
+                       dev)
+    t0 = time.perf_counter()
+    state0 = init_train_state(torch.Generator(dev).manual_seed(0), cfg, fns,
+                              dev)
+    torch.cuda.synchronize()
+    shapes = {n: tuple(v.shape) for n, v in data.batch_at(0).items()}
+    print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, d "
+          f"{cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.hd}: "
+          f"{cfg.param_count() / 1e9:.3f}B params (full depth "
+          f"{full.param_count() / 1e9:.3f}B) drawn on the card: "
+          f"{time.perf_counter() - t0:.1f} s | {kind} batches {shapes}",
+          flush=True)
+    step_fn = make_train_step(cfg, fns, tcfg)
+    fused = make_fused_steps(cfg, fns, tcfg)
+    step_fn(state0, data.batch_at(0))     # warm-up: cuBLAS, allocator
+    want_launches = 2 * cfg.n_layers * steps
+    runs = {}
+    for mode in ("run_fused", "run"):
+        # the trainer's step-0 snapshot is a host copy only (no
+        # directories): phase 5 covers the checkpoint writes
+        ft = FTConfig(checkpoint_dirs=(), checkpoint_every=10 * steps,
+                      drain_every=k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = FaultTolerantTrainer(step_fn, state0, data, ft,
+                                  fused_steps=fused)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        hist = getattr(tr, mode)(steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = flash_attention.launches
+        losses = [h["loss"] for h in hist]
+        st = tr.stats
+        print(f"  {arch} {mode}: {steps} steps x {seq * batch} tokens in "
+              f"{dt:.3f} s = {steps * seq * batch / dt:.1f} tok/s | "
+              f"{st['host_syncs'] / steps:.4f} host syncs/step "
+              f"({st['drains']} drains) | B3 launches {launches} | peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        print(f"    loss {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"{arch} {mode}: a loss is not finite: {losses}")
+        check(st["rollbacks"] == 0, f"{arch} {mode}: rollbacks on a clean "
+              f"run")
+        check(launches == want_launches, f"{arch} {mode}: B3 launched "
+              f"{launches} times, want 2 x {cfg.n_layers} x {steps}")
+        runs[mode] = (losses, tr.state, launches, st)
+    check(runs["run_fused"][3]["drains"] == steps // k,
+          f"{arch}: run_fused drained {runs['run_fused'][3]['drains']} "
+          f"times, want {steps // k}")
+    check(runs["run_fused"][0] == runs["run"][0],
+          f"{arch}: run_fused and run losses differ")
+    pa, pb = tree_paths(runs["run_fused"][1]), tree_paths(runs["run"][1])
+    check(list(pa) == list(pb) and all(torch.equal(pa[n], pb[n])
+                                       for n in pa),
+          f"{arch}: run_fused and run final states differ")
+    print(f"  {arch}: run_fused == run, losses and final state bitwise; no "
+          f"host sync inside the fused block (sync debug mode \"error\")",
+          flush=True)
+    return runs["run_fused"][2] + runs["run"][2]
+
+
+def branch_reference(torch):
+    """Phase 19: the six configs' reduced widths at head_dim 64 (qwen2-vl
+    with M-RoPE sections 16/8/8), f32, on the card against the CPU: the
+    training loss (B3 on the card), a prefill and 8 decode steps (B1)
+    within 1e-3 with the same greedy tokens; the token LMs' engines
+    (dense and paged) give the CPU's token streams."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from repro_torch.train import DataConfig, SyntheticLM
+    from repro_torch.train.tree import tree_map
+    dev = torch.device("cuda")
+    cpu_dev = torch.device("cpu")
+    for arch in ("minicpm-2b", "stablelm-12b", "command-r-35b",
+                 "qwen2.5-32b", "qwen2-vl-2b", "musicgen-medium"):
+        over = dict(compute_dtype="float32", head_dim=64)
+        if arch == "qwen2-vl-2b":
+            over["mrope_sections"] = (16, 8, 8)
+        cfg = registry.get_reduced_config(arch, **over)
+        fns = registry.model_fns(cfg)
+        kind = registry.input_kind(arch)
+        cpu = context_params(torch, fns, cfg, "cpu", seed=1)
+        gpu = tree_map(lambda x: x.to(dev), cpu)
+        sides = ((cpu_dev, cpu), (dev, gpu))
+        loss = []
+        for d, p in sides:
+            batch = SyntheticLM(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=128, global_batch=2,
+                n_codebooks=cfg.n_codebooks, kind=kind), d).batch_at(0)
+            with torch.no_grad():
+                loss.append(fns.loss_fn(p, batch, cfg).item())
+        lerr = abs(loss[1] - loss[0])
+        check(lerr <= 1e-3, f"{arch}: card vs CPU loss differ by {lerr}")
+        rng = np.random.default_rng(2)
+        shape = ((3, cfg.n_codebooks, 12) if cfg.n_codebooks > 1
+                 else (3, 12))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+        caches = []
+        for d, _ in sides:
+            cache = fns.init_cache(cfg, 3, 64, device=d)
+            cache["pos"] = torch.zeros(3, dtype=torch.int32, device=d)
+            caches.append(cache)
+        worst, nxt = 0.0, toks
+        for i in range(9):
+            lg = []
+            for j, (d, p) in enumerate(sides):
+                out, caches[j] = fns.decode_step(p, caches[j], nxt.to(d),
+                                                 cfg)
+                lg.append(out.cpu())
+            worst = max(worst, (lg[1] - lg[0]).abs().max().item())
+            check(torch.equal(lg[1].argmax(-1), lg[0].argmax(-1)),
+                  f"{arch}: card and CPU greedy tokens differ at step {i}")
+            nxt = lg[0].argmax(-1)[..., None]
+        check(worst <= 1e-3, f"{arch}: card vs CPU logits differ by {worst}")
+        line = (f"  {cfg.name} (head_dim 64) f32: loss card vs CPU "
+                f"{lerr:.3e}, prefill + 8 decode steps logits max abs err "
+                f"{worst:.3e} (tol 1e-3), greedy tokens equal")
+        if kind == "tokens":
+            prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(
+                np.int32) for n in rng.integers(3, 30, 6)]
+            streams = []
+            for p, page in ((cpu, 0), (gpu, 0), (gpu, 16)):
+                eng = ServingEngine(cfg, fns, p, EngineConfig(
+                    max_batch=3, max_len=64, decode_block=4,
+                    page_size=page))
+                for r in _family_requests(Request, prompts, 12):
+                    eng.submit(r)
+                streams.append({r.uid: r.generated for r in eng.run()})
+            check(streams[0] == streams[1] == streams[2],
+                  f"{arch}: card (dense, paged) and CPU token streams "
+                  f"differ")
+            line += "; an engine's 6 streams equal on both, dense and paged"
+        print(line, flush=True)
+
+
+def branch_rows(torch, timer):
+    """Phase 2's rows at the new decode widths and phase 2b's at the new
+    training widths: {row name: row}."""
+    rows = {}
+    for suffix, (h, hkv, dh) in BRANCH_ROWS.items():
+        print(f"  B1/B2 at H {h}/{hkv}, dh {dh}:", flush=True)
+        for r in kernel_phase(torch, timer, h, hkv, ((16, 512, 232, 256),),
+                              suffix, dh):
+            rows[r["name"]] = r
+    print("  B3 at qwen2-vl-2b's and musicgen-medium's training widths:",
+          flush=True)
+    for r in flash_phase(torch, timer, ("flash_attention_dh128",
+                                        "flash_attention_mha"), more=False):
+        rows[r["name"]] = r
+    return rows
+
+
+def branch_paths(torch):
+    """Phases 17-19.  Returns {row name: launches} for the rows of
+    `branch_rows`."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 17: serve minicpm-2b, stablelm-12b, command-r-35b, "
+          "qwen2.5-32b (published widths, cut in depth, bf16)")
+    launches = {}
+    for arch, (_, suffix) in BRANCH_SERVE.items():
+        t0 = time.perf_counter()
+        b1, b2 = branch_serve_phase(torch, arch)
+        check(b1 > 0 and b2 > 0, f"{arch}: B1 or B2 never launched")
+        for name, n in (("decode_attention" + suffix, b1),
+                        ("paged_decode_attention" + suffix, b2)):
+            launches[name] = launches.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("phase 18: train musicgen-medium and qwen2-vl-2b (published "
+          "widths, cut in depth, bf16, seq 1024, batch 8)")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for arch, name in (("qwen2-vl-2b", "flash_attention_dh128"),
+                           ("musicgen-medium", "flash_attention_mha")):
+            launches[name] = branch_train_phase(torch, arch)
+            check(launches[name] > 0, f"{arch}: B3 never launched")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    phase("phase 19: the six reduced configs, card vs CPU")
+    branch_reference(torch)
+    return launches
+
+
 def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
     only_new = argv == ["--phase", "8"]
     only_plane = argv == ["--phase", "11"]
     only_family = argv == ["--phase", "14"]
-    if argv and not (only_2c or only_new or only_plane or only_family):
+    only_branch = argv == ["--phase", "17"]
+    if argv and not (only_2c or only_new or only_plane or only_family
+                     or only_branch):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
-              "--phase 14]", file=sys.stderr)
+              "--phase 14 | --phase 17]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2607,6 +3022,16 @@ def main(argv):
         family_paths(torch)
         print("phases 14-16 alone: no result line")
         return 0
+    if only_branch:
+        phase("phase 2: B1/B2 at the decode widths of phase 17; 2b: B3 at "
+              "the training widths of phase 18")
+        new_rows = branch_rows(torch, timer)
+        for n, count in branch_paths(torch).items():
+            new_rows[n]["launches"] = count
+        phase()
+        print(json.dumps({"kernels": list(new_rows.values())}))
+        print("phases 17-19 alone: no result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -2620,11 +3045,14 @@ def main(argv):
     rows_h16 = kernel_phase(torch, timer, 16, 8, ((16, 512, 232, 256),),
                             "_h16")
     phase("phase 2b: flash-attention kernel vs plain version")
-    rows.append(flash_phase(torch, timer))
+    rows.extend(flash_phase(torch, timer, ("flash_attention",)))
     phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at head_dim "
           "256")
     rows.extend(rglru_kernel_phase(torch, timer))
     rows.extend(rows_h16)                    # rows 7 and 8
+    phase("phase 2 and 2b, new rows: B1/B2 at the decode widths of phase "
+          "17, B3 at the training widths of phase 18")
+    new_rows = branch_rows(torch, timer)
 
     phase("phase 3: serve suncatcher-lm-100m (full width, bf16)")
     totals = serve_phase(torch)
@@ -2673,7 +3101,15 @@ def main(argv):
     torch.cuda.empty_cache()
 
     rows[7]["launches"], rows[8]["launches"] = family_paths(torch)
+    torch.cuda.empty_cache()
 
+    for n, count in branch_paths(torch).items():
+        new_rows[n]["launches"] = count
+    rows.extend(new_rows.values())
+    check(all(r.get("launches", 0) > 0 for r in rows),
+          "a kernel row was never launched on its main path")
+
+    phase()
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

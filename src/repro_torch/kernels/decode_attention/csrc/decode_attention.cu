@@ -49,7 +49,10 @@
 // across the four warps through 512 bytes of shared memory.  P is rounded
 // to bf16 for the P.V product, as FlashAttention-2 does, and l sums the
 // rounded weights.  Warp w then owns dims [w dh/4, (w+1) dh/4) of the
-// accumulator, in registers, with V fragments from ldmatrix.trans.  The f32
+// accumulator, in registers, with V fragments from ldmatrix.trans, two
+// n-tiles per x4 load (dh 160 gives each warp 5 n-tiles of 8 dims: the
+// fifth comes from an x2 load, so the cache keeps its 160-wide rows,
+// unpadded).  The f32
 // instances (tests and chip_smoke.py only) use the same split, staging and
 // merge with fmaf on the CUDA cores.
 //
@@ -125,6 +128,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
+// two 8x8 matrices: addresses from lanes 0-15 (the others' are ignored)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -174,7 +186,7 @@ __device__ void split_tc(const SplitArgs& a, const bf16* k_s, const bf16* v_s,
   constexpr int NTS = SPW / 8;     // score n-tiles per warp
   constexpr int DPW = DH / WARPS;  // accumulator dims per warp
   constexpr int NTO = DPW / 8;     // accumulator n-tiles per warp
-  static_assert(SPW % 8 == 0 && NTO % 2 == 0, "tile shape");
+  static_assert(SPW % 8 == 0 && DPW % 8 == 0, "tile shape");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int group = a.group;
@@ -284,6 +296,15 @@ __device__ void split_tc(const SplitArgs& a, const bf16* k_s, const bf16* v_s,
         ldmatrix_x4_trans(bf, v_s + row * LD + col);
         mma_bf16(acc[2 * np], af, bf[0], bf[1]);
         mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+      }
+      if constexpr (NTO % 2) {
+        // an odd n-tile count (dh 160: 5 per warp): the last n-tile's
+        // two matrices, (k lo, n) and (k hi, n), from lanes 0-15
+        const int row = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = warp * DPW + (NTO - 1) * 8;
+        uint32_t bf[2];
+        ldmatrix_x2_trans(bf, v_s + row * LD + col);
+        mma_bf16(acc[NTO - 1], af, bf[0], bf[1]);
       }
     }
     // write this split's partials for the real rows of the block
@@ -550,10 +571,12 @@ int dispatch(const SplitArgs& a, void* out, int dh, int dtype,
   if (dtype == 0) {
     DA_CASE(float, 64);
     DA_CASE(float, 128);
+    DA_CASE(float, 160);
     DA_CASE(float, 256);
   } else if (dtype == 1) {
     DA_CASE(bf16, 64);
     DA_CASE(bf16, 128);
+    DA_CASE(bf16, 160);
     DA_CASE(bf16, 256);
   }
 #undef DA_CASE

@@ -23,7 +23,7 @@ import torch
 from .._build import Library, raise_on
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 160, 256)
 
 
 def _declare(lib):

@@ -49,7 +49,8 @@ stats it prints how many times each decode-attention kernel and the
 RG-LRU scan kernel were launched (0 on the CPU, where the kernels' plain
 versions run).  `--page-size` with a recurrent (carry) family
 (recurrentgemma-2b, xlstm-350m) is refused: its state has nothing to
-page.
+page.  The codebook and VLM archs (musicgen-medium, qwen2-vl-2b) are
+refused, as the reference's launcher refuses them: they train only.
 """
 import argparse
 import time
@@ -170,6 +171,11 @@ def main(argv=None):
         if a not in registry.ARCH_IDS:
             raise SystemExit(f"unknown --arch {a!r}; ported: "
                              f"{registry.ARCH_IDS}")
+        if registry.input_kind(a) != "tokens":
+            raise SystemExit(f"--arch {a}: the serve launcher supports "
+                             f"token-LM archs ({registry.input_kind(a)} "
+                             f"inputs are trained only, as in the "
+                             f"reference)")
     mixed = len(archs) > 1
     if mixed and args.replicas < 2:
         raise SystemExit("a mixed --arch plane needs --replicas >= 2: "

@@ -12,6 +12,11 @@ DiLoCoSupervisor.
       --diloco-pods 2 --inner-steps 8 --compress int8 --constellation \
       --seq-len 1024 --batch 8
 
+  # the codebook (musicgen-medium) and VLM (qwen2-vl-2b) archs train on
+  # batches of their kind; minicpm-2b defaults to the WSD schedule
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
+      --full --steps 16 --seq-len 1024 --batch 8
+
 It runs on the CUDA card unless `--device cpu` is given; with no card and
 the default device it exits with an error rather than fall back.  Weights
 are random, from a seeded generator; data is the synthetic stream of
@@ -55,7 +60,9 @@ def build_parser():
     ap.add_argument("--full", action="store_true",
                     help="the config's published widths (default: the "
                          "reduced smoke config)")
-    ap.add_argument("--schedule", default="cosine", help="cosine|wsd")
+    ap.add_argument("--schedule", default=None, choices=["cosine", "wsd"],
+                    help="LR schedule (default: the arch's own, wsd for "
+                         "minicpm-2b, else cosine)")
     ap.add_argument("--drain-every", type=int, default=8,
                     help="metrics-block drain cadence K (1 = per-step host "
                          "loop)")
@@ -125,7 +132,10 @@ def _run_diloco(args, cfg, fns, tcfg, data, device):
                       keep=1)
         sup = DiLoCoSupervisor(rnd, d_state, dcfg, ft, liveness=liveness)
         t0 = time.perf_counter()
-        hist = sup.run(n_rounds, forced_rollback_at=forced)
+        try:
+            hist = sup.run(n_rounds, forced_rollback_at=forced)
+        finally:
+            sup.join_checkpoints()     # the writers must not outlive `d`
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -171,12 +181,14 @@ def main(argv=None):
     cfg = (registry.get_config(args.arch) if args.full
            else registry.get_reduced_config(args.arch))
     fns = registry.model_fns(cfg)
-    tcfg = TrainConfig(adamw=AdamWConfig(lr=args.lr), schedule=args.schedule,
+    sched = args.schedule or registry.lr_schedule(args.arch)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=args.lr), schedule=sched,
                        warmup_steps=max(2, args.steps // 10),
                        total_steps=args.steps)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq_len,
                                   global_batch=args.batch,
+                                  n_codebooks=getattr(cfg, "n_codebooks", 1),
                                   kind=registry.input_kind(args.arch)),
                        device)
     if args.diloco_pods > 0:
@@ -194,14 +206,20 @@ def main(argv=None):
                      drain_every=args.drain_every),
             fused_steps=fused)
         t0 = time.perf_counter()
-        hist = (trainer.run_fused(args.steps) if fused is not None
-                else trainer.run(args.steps))
+        try:
+            hist = (trainer.run_fused(args.steps) if fused is not None
+                    else trainer.run(args.steps))
+        finally:
+            # a writer left running past the directory's removal would
+            # report its own FileNotFoundError after the run's error
+            trainer.join_checkpoints()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
     mode = (f"fused drains (K={args.drain_every})" if fused is not None
             else "per-step host loop")
-    print(f"{cfg.name}: {len(hist)} steps [{mode}] on {device}, loss "
+    print(f"{cfg.name}: {len(hist)} steps [{mode}] on {device} ({sched} "
+          f"schedule, {registry.input_kind(args.arch)} batches), loss "
           f"{hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}, "
           f"ft stats {trainer.stats}")
     print(f"  {len(hist) * args.batch * args.seq_len / dt:.0f} tok/s | "

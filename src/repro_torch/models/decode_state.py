@@ -386,6 +386,9 @@ class PagedTransformerDecodeState(TransformerDecodeState):
         if cfg.window is not None:
             raise ValueError("paged KV serving does not support local "
                              "(windowed) attention yet")
+        if cfg.n_codebooks > 1:
+            raise ValueError("paged KV serving supports single-codebook "
+                             "token streams only")
         m = -(-max_len // 128) * 128       # same padding as init_cache
         if m % page_size:
             raise ValueError(

@@ -20,19 +20,23 @@ def nest(flat: dict) -> dict:
 
 def draw(specs: dict, gen: torch.Generator, dtype, device) -> dict:
     """Random params from `specs`, whose init is the std of a normal draw,
-    a (low, high) uniform range, or "ones" / "zeros", drawn from the CPU
-    generator `gen` in spec order (so a seed gives the same weights on any
-    device) and moved to `device` in `dtype`."""
+    a (low, high) uniform range, or "ones" / "zeros", drawn from `gen` on
+    the generator's own device in spec order and moved to `device` in
+    `dtype`.  A CPU generator gives the same weights on any device; a
+    CUDA generator draws on the card."""
     flat = {}
+    src = gen.device
     for name, (shape, init) in specs.items():
         if init == "ones":
-            t = torch.ones(shape, dtype=dtype)
+            t = torch.ones(shape, dtype=dtype, device=device)
         elif init == "zeros":
-            t = torch.zeros(shape, dtype=dtype)
+            t = torch.zeros(shape, dtype=dtype, device=device)
         elif isinstance(init, tuple):
-            t = torch.empty(shape, dtype=dtype).uniform_(*init, generator=gen)
+            t = torch.empty(shape, dtype=dtype, device=src).uniform_(
+                *init, generator=gen)
         else:
-            t = torch.randn(shape, generator=gen, dtype=dtype) * init
+            t = torch.randn(shape, generator=gen, dtype=dtype,
+                            device=src) * init
         flat[name] = t.to(device)
     return nest(flat)
 

@@ -8,9 +8,10 @@ Python int 0, no window, no `kv_len`, Sq == Skv > 1) goes to the
 flash-attention kernel, under the reference's own condition for it.  Each
 wrapper runs its CUDA kernel for CUDA tensors and the plain version for
 CPU tensors.  Everything else (the engine's ragged prefill, windows) runs
-`attention_ref`: the RG-LRU model's windowed prefill goes there, and its
+`attention_ref`, or `attention_chunked` (the reference's online-softmax
+over KV blocks, a plain function) when the caller asks for
+`impl="chunked"`: the RG-LRU model's windowed prefill goes there, and its
 ring decode (one row, `kv_len`, no window) to the dense decode kernel.
-The chunked path of the reference is not ported yet.
 """
 from __future__ import annotations
 
@@ -46,6 +47,28 @@ def rope_cos_sin(positions, head_dim: int, base: float = 10000.0,
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
 
+def mrope_cos_sin(positions_thw, head_dim: int, sections=(16, 24, 24),
+                  base: float = 10000.0, dtype=torch.float32):
+    """Qwen2-VL multimodal RoPE: positions_thw (3, B, S) for (t, h, w);
+    the frequency slots split into `sections` (t/h/w) summing to
+    head_dim/2.  Returns cos/sin (B, S, head_dim/2)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim/2 = {head_dim // 2}")
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=positions_thw.device)
+                          / head_dim))
+    cos_all, sin_all = [], []
+    lo = 0
+    for i, sec in enumerate(sections):
+        ang = positions_thw[i][..., None].float() * inv[lo:lo + sec]
+        cos_all.append(torch.cos(ang))
+        sin_all.append(torch.sin(ang))
+        lo += sec
+    return (torch.cat(cos_all, -1).to(dtype),
+            torch.cat(sin_all, -1).to(dtype))
+
+
 def apply_rope(x, cos, sin):
     """x (B, S, H, Dh); cos/sin (B, S, Dh/2) or (S, Dh/2)."""
     x1, x2 = x.chunk(2, dim=-1)
@@ -54,6 +77,15 @@ def apply_rope(x, cos, sin):
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def repeat_kv(k, n_rep: int):
+    """(B, S, Hkv, Dh) -> (B, S, Hkv * n_rep, Dh)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
 
 
 def _qpos(q_offset, sq: int, device):
@@ -106,10 +138,58 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None, q_offset=0,
     return out.reshape(b, sq, h, dh)
 
 
-def attention(q, k, v, *, page_table=None, causal: bool = True, window=None,
-              q_offset=0, kv_len=None):
+def attention_chunked(q, k, v, *, causal: bool = True, window=None,
+                      q_offset=0, kv_len=None, kv_block: int = 512):
+    """Online-softmax attention over KV blocks of `kv_block` positions
+    (the flash recurrence, in f32): peak memory per block is (B, H, Sq,
+    kv_block) instead of (B, H, Sq, Skv).  Arguments as `attention_ref`;
+    Skv need not be a multiple of `kv_block` (the tail block is padded and
+    masked)."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    k, v = repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
+    if skv % kv_block:
+        pad = kv_block - skv % kv_block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float() * dh ** -0.5
+    qpos = _qpos(q_offset, sq, q.device)
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=q.device)
+        if kv_len.dim() == 1 and qpos.dim() == 1:
+            qpos = qpos.expand(b, sq)     # a per-row mask for (B,) kv_len
+    acc = torch.zeros(b, h, sq, dh, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l = torch.zeros(b, h, sq, device=q.device)
+    for i in range(k.shape[1] // kv_block):
+        kc = k[:, i * kv_block:(i + 1) * kv_block].float()
+        vc = v[:, i * kv_block:(i + 1) * kv_block].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc)
+        kpos = i * kv_block + torch.arange(kv_block, device=q.device)
+        mask = _qk_mask(qpos, kpos, causal, window)
+        if kv_len is not None:
+            mask &= kpos < (kv_len[:, None, None] if kv_len.dim() == 1
+                            else kv_len)
+        mask &= kpos < skv
+        mask = mask[:, None] if mask.dim() == 3 else mask[None, None]
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(v.dtype)
+
+
+def attention(q, k, v, *, impl: str = "ref", page_table=None,
+              causal: bool = True, window=None, q_offset=0, kv_len=None):
     """Dispatch by shape.  With `page_table`, k/v are (P+1, ps, Hkv, dh)
-    pools and the call is a paged decode step."""
+    pools and the call is a paged decode step.  `impl="chunked"` (the
+    config's `attn_impl`) sends the multi-row calls that no kernel takes
+    to `attention_chunked`, as the reference's `attention` does; any
+    other value leaves them to `attention_ref`."""
     if page_table is not None:
         if q.shape[1] != 1 or window is not None or kv_len is None:
             raise ValueError("paged attention is one-row decode with "
@@ -120,6 +200,9 @@ def attention(q, k, v, *, page_table=None, causal: bool = True, window=None,
     if window is None and kv_len is None and isinstance(q_offset, int) \
             and q_offset == 0 and 1 < q.shape[1] == k.shape[1]:
         return flash_attention(q, k, v, causal=causal)
+    if impl == "chunked" and q.shape[1] > 1:
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, kv_len=kv_len)
     return attention_ref(q, k, v, causal=causal, window=window,
                          q_offset=q_offset, kv_len=kv_len)
 
@@ -132,3 +215,8 @@ def swiglu(x, wi_gate, wi_up, wo):
 def geglu(x, wi_gate, wi_up, wo):
     """Gemma-style gated MLP, tanh-approximate GELU on the gate."""
     return (F.gelu(x @ wi_gate, approximate="tanh") * (x @ wi_up)) @ wo
+
+
+def gelu_mlp(x, wi, bi, wo, bo):
+    """Plain GELU MLP with biases (MusicGen), tanh-approximate GELU."""
+    return F.gelu(x @ wi + bi, approximate="tanh") @ wo + bo

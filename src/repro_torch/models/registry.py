@@ -1,7 +1,7 @@
 """Architecture registry: --arch <id> -> (config, model functions).
 
-Three families are ported so far: the transformer (of its configs, the
-demo LM and the two MoE configs, granite-moe and qwen3-moe), the RG-LRU
+All eleven configs of the reference are registered, in its order: the
+transformer family (dense, MoE, VLM and audio configs), the RG-LRU
 hybrid (recurrentgemma-2b) and xLSTM (xlstm-350m)."""
 from __future__ import annotations
 
@@ -13,8 +13,20 @@ from .rglru import RGLRUConfig
 from .transformer import TransformerConfig
 from .xlstm import XLSTMConfig
 
-ARCH_IDS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "xlstm-350m",
-            "recurrentgemma-2b", "suncatcher-lm-100m"]
+ARCH_IDS = [
+    "granite-moe-1b-a400m",
+    "qwen3-moe-30b-a3b",
+    "minicpm-2b",
+    "stablelm-12b",
+    "command-r-35b",
+    "qwen2.5-32b",
+    "qwen2-vl-2b",
+    "xlstm-350m",
+    "recurrentgemma-2b",
+    "musicgen-medium",
+    # the paper's own end-to-end demo model
+    "suncatcher-lm-100m",
+]
 
 # config dataclass -> model module
 _FAMILIES = {
@@ -64,6 +76,13 @@ def get_reduced_config(arch: str, **overrides):
 
 
 def input_kind(arch: str) -> str:
-    """What a batch of this arch holds: "tokens" (the data pipeline's
-    `DataConfig.kind`)."""
+    """What a batch of this arch holds (the data pipeline's
+    `DataConfig.kind`): "tokens", "codebooks" (B, n_q, S) or "vlm" (tokens
+    plus (3, B, S) M-RoPE positions)."""
     return getattr(_config_module(arch), "INPUT_KIND", "tokens")
+
+
+def lr_schedule(arch: str) -> str:
+    """The arch's default LR schedule: "wsd" where its config names it
+    (minicpm-2b, as the reference's launcher picks), else "cosine"."""
+    return getattr(_config_module(arch), "LR_SCHEDULE", "cosine")

@@ -132,8 +132,8 @@ def _param_specs(cfg: RGLRUConfig) -> dict:
 def init_params(gen: torch.Generator, cfg: RGLRUConfig,
                 device="cuda") -> dict:
     """Random params with the reference's shapes and scales, drawn from
-    the CPU generator `gen` in a fixed order (so a seed gives the same
-    weights on any device) and moved to `device` in param_dtype."""
+    `gen` on its own device in a fixed order (a CPU generator gives the
+    same weights on any device) and moved to `device` in param_dtype."""
     return grouped.draw(_param_specs(cfg), gen, cfg.pdtype, device)
 
 

@@ -18,9 +18,15 @@ nothing saveable): the backward pass recomputes the block, attention
 kernel included.
 
 The MoE branch (granite-moe, qwen3-moe) replaces each block's MLP with
-the capacity-routed expert FFN of `models/moe.py`.  Multi-codebook,
-sinusoidal positions, parallel blocks, M-RoPE and the GeGLU/GELU MLPs are
-not ported yet: such configs raise NotImplementedError.
+the capacity-routed expert FFN of `models/moe.py`.  The other branches
+are the reference's too: GeGLU and GELU MLPs, the parallel attention +
+FFN block (command-r), sinusoidal positions (musicgen), M-RoPE over
+(3, B, S) position ids (qwen2-vl) and multi-codebook token streams
+(musicgen: tokens (B, n_q, S), the codebooks' embeddings summed, logits
+(B, n_q, S, V) from one head per codebook).
+
+`init_params` draws on its generator's device: a CPU generator gives the
+same weights on any device, a CUDA generator draws on the card.
 """
 from __future__ import annotations
 
@@ -31,8 +37,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (_qpos, apply_rope, attention, layer_norm, rms_norm,
-                     rope_cos_sin, swiglu)
+from .layers import (_qpos, apply_rope, attention, gelu_mlp, geglu,
+                     layer_norm, mrope_cos_sin, rms_norm, rope_cos_sin,
+                     swiglu)
 from .losses import chunked_lm_loss, softmax_xent
 from .moe import moe_ffn
 
@@ -106,18 +113,6 @@ class TransformerConfig:
         return total - expert + expert * self.top_k // self.num_experts
 
 
-def _check_supported(cfg: TransformerConfig):
-    waiting = {"n_codebooks > 1": cfg.n_codebooks > 1,
-               "pos_embed != 'rope'": cfg.pos_embed != "rope",
-               "parallel_block": cfg.parallel_block,
-               "mrope_sections (M-RoPE)": cfg.mrope_sections is not None,
-               "mlp_act != 'swiglu'": cfg.mlp_act != "swiglu"}
-    hit = [k for k, v in waiting.items() if v]
-    if hit:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(hit)} not ported to repro_torch yet")
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
@@ -141,45 +136,56 @@ def _param_specs(cfg: TransformerConfig) -> dict:
         spec["layers/bq"] = ((L, h * hd), "zeros")
         spec["layers/bk"] = ((L, hkv * hd), "zeros")
         spec["layers/bv"] = ((L, hkv * hd), "zeros")
-    spec["layers/mlp_norm"] = ((L, d), "ones")
-    if cfg.norm == "layernorm":
-        spec["layers/mlp_norm_bias"] = ((L, d), "zeros")
+    if not cfg.parallel_block:
+        spec["layers/mlp_norm"] = ((L, d), "ones")
+        if cfg.norm == "layernorm":
+            spec["layers/mlp_norm_bias"] = ((L, d), "zeros")
     if cfg.is_moe:
         e = cfg.num_experts
         spec["layers/router"] = ((L, d, e), ("shared", s))
         spec["layers/moe_wi_gate"] = ((L, e, d, f), ("shared", s))
         spec["layers/moe_wi_up"] = ((L, e, d, f), ("shared", s))
         spec["layers/moe_wo"] = ((L, e, f, d), ("shared", f ** -0.5))
+    elif cfg.mlp_act == "gelu":
+        spec["layers/wi"] = ((L, d, f), s)
+        spec["layers/bi"] = ((L, f), "zeros")
+        spec["layers/wo_mlp"] = ((L, f, d), f ** -0.5)
+        spec["layers/bo"] = ((L, d), "zeros")
     else:
         spec["layers/wi_gate"] = ((L, d, f), s)
         spec["layers/wi_up"] = ((L, d, f), s)
         spec["layers/wo_mlp"] = ((L, f, d), f ** -0.5)
-    spec["embed"] = ((cfg.vocab_size, d), 1.0)
+    nq, v = cfg.n_codebooks, cfg.vocab_size
+    spec["embed"] = (((nq, v, d) if nq > 1 else (v, d)), 1.0)
     spec["final_norm"] = ((d,), "ones")
     if cfg.norm == "layernorm":
         spec["final_norm_bias"] = ((d,), "zeros")
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ((d, cfg.vocab_size), s)
+        spec["lm_head"] = (((nq, d, v) if nq > 1 else (d, v)), s)
     return spec
 
 
 def init_params(gen: torch.Generator, cfg: TransformerConfig,
                 device="cuda") -> dict:
     """Random params with the reference's shapes and scales, drawn from
-    the CPU generator `gen` in a fixed order (so a seed gives the same
-    weights on any device) and moved to `device` in param_dtype."""
-    _check_supported(cfg)
+    `gen` on the generator's own device in a fixed order and moved to
+    `device` in param_dtype.  A CPU generator gives the same weights on
+    any device; a CUDA generator draws on the card (the full-width
+    configs' billions of draws take minutes on the host)."""
     params = {"layers": {}}
+    dt = cfg.pdtype
     for name, (shape, init) in _param_specs(cfg).items():
         if init == "ones":
-            t = torch.ones(shape, dtype=cfg.pdtype)
+            t = torch.ones(shape, dtype=dt, device=device)
         elif init == "zeros":
-            t = torch.zeros(shape, dtype=cfg.pdtype)
+            t = torch.zeros(shape, dtype=dt, device=device)
         elif isinstance(init, tuple):
-            one = torch.randn(shape[1:], generator=gen, dtype=cfg.pdtype)
+            one = torch.randn(shape[1:], generator=gen, dtype=dt,
+                              device=gen.device)
             t = (one * init[1]).to(device).expand(shape).contiguous()
         else:
-            t = torch.randn(shape, generator=gen, dtype=cfg.pdtype) * init
+            t = torch.randn(shape, generator=gen, dtype=dt,
+                            device=gen.device) * init
         group, _, leaf = name.rpartition("/")
         (params["layers"] if group else params)[leaf] = t.to(device)
     return params
@@ -188,7 +194,6 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
 def params_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
     """The reference's param pytree, exported leaf by leaf with
     `np.asarray`, as port params on `device` (same names, shapes, dtypes)."""
-    _check_supported(cfg)
     want = _param_specs(cfg)
     flat = {("layers/" + k): v for k, v in tree["layers"].items()}
     flat.update({k: v for k, v in tree.items() if k != "layers"})
@@ -221,19 +226,19 @@ def train_state_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
 
 def cast_params(params: dict, cfg: TransformerConfig) -> dict:
     """One compute-dtype copy of every weight the blocks, the final norm
-    and the unembed read, plus "head" (the cast unembedding matrix).  The
+    and the unembed read, plus "head" (the cast unembedding matrix, (d,
+    V), or (n_q, d, V) for a multi-codebook model).  The
     reference casts the param_dtype weights inside every block call; the
     values are identical, the port pays the cast once.  The embedding
     table stays in param_dtype: the reference gathers and scales rows
     before the cast.  Already-cast params pass through unchanged."""
-    _check_supported(cfg)
     if "head" in params:
         return params
     cd = cfg.cdtype
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = {k: v.to(cd) for k, v in params["layers"].items()}
     out["final_norm"] = params["final_norm"].to(cd)
-    out["head"] = (params["embed"].T if cfg.tie_embeddings
+    out["head"] = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
                    else params["lm_head"]).to(cd)
     return out
 
@@ -261,9 +266,11 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
     q, k, v = hnb @ lp["wq"], hnb @ lp["wk"], hnb @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
-    k = apply_rope(k.reshape(b, s, hkv, hd), cos, sin)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
+    if cfg.pos_embed == "rope":
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     rows = torch.arange(b, device=x.device)
 
     page_table = None
@@ -288,20 +295,26 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
     if torch.is_tensor(q_offset) and q_offset.dim() == 1:
         # ragged per-slot positions: at s == 1 the kv_len mask is the
         # causal constraint; s > 1 is bucketed prefill, causal per row
-        attn = attention(q, k, v, causal=s > 1, window=cfg.window,
-                         kv_len=kv_len, q_offset=q_offset,
-                         page_table=page_table)
+        attn = attention(q, k, v, impl=cfg.attn_impl, causal=s > 1,
+                         window=cfg.window, kv_len=kv_len,
+                         q_offset=q_offset, page_table=page_table)
     else:
-        attn = attention(q, k, v, causal=True, window=cfg.window,
-                         q_offset=q_offset, kv_len=kv_len)
-    x = x + cfg.residual_scale * (attn.reshape(b, s, h * hd) @ lp["wo"])
+        attn = attention(q, k, v, impl=cfg.attn_impl, causal=True,
+                         window=cfg.window, q_offset=q_offset,
+                         kv_len=kv_len)
+    attn_out = attn.reshape(b, s, h * hd) @ lp["wo"]
+    if cfg.parallel_block:
+        # Command-R: attention and FFN read the same normed input
+        return x + cfg.residual_scale * (attn_out + _mlp(cfg, lp, hnb))
+    x = x + cfg.residual_scale * attn_out
     h2 = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_bias"))
     return x + cfg.residual_scale * _mlp(cfg, lp, h2)
 
 
 def _mlp(cfg, lp, h):
     """The block's FFN: the expert FFN over all B * S tokens of the call
-    (capacity and drops are per call, as in the reference), or SwiGLU."""
+    (capacity and drops are per call, as in the reference), a GELU MLP
+    with biases, or SwiGLU / GeGLU."""
     if cfg.is_moe:
         b, s, d = h.shape
         moe_params = {"router": lp["router"], "wi_gate": lp["moe_wi_gate"],
@@ -309,27 +322,74 @@ def _mlp(cfg, lp, h):
         return moe_ffn(h.reshape(b * s, d), moe_params,
                        num_experts=cfg.num_experts, top_k=cfg.top_k,
                        capacity_factor=cfg.capacity_factor).reshape(b, s, d)
-    return swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
+    if cfg.mlp_act == "gelu":
+        return gelu_mlp(h, lp["wi"], lp["bi"], lp["wo_mlp"], lp["bo"])
+    fn = geglu if cfg.mlp_act == "geglu" else swiglu
+    return fn(h, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
 
 
 def _embed(cfg, params, tokens):
-    return (params["embed"][tokens] * cfg.embed_scale).to(cfg.cdtype)
+    """tokens (B, S), or (B, n_q, S) with the codebooks' embeddings summed
+    (the EnCodec stub of the reference)."""
+    emb = params["embed"]
+    if cfg.n_codebooks > 1:
+        x = sum(emb[q][tokens[:, q]] for q in range(cfg.n_codebooks))
+    else:
+        x = emb[tokens]
+    return (x * cfg.embed_scale).to(cfg.cdtype)
 
 
 def _unembed(cfg, params, x):
-    return (x @ params["head"]) * cfg.logit_scale
+    """(B, S, V) logits, or (B, n_q, S, V) for a multi-codebook model."""
+    if cfg.n_codebooks > 1:
+        logits = torch.einsum("bsd,qdv->bqsv", x, params["head"])
+    else:
+        logits = x @ params["head"]
+    return logits * cfg.logit_scale
+
+
+def _sin_table(cfg, pos, dtype):
+    """Sinusoidal embeddings of positions `pos` (any shape), (..., d)."""
+    d = cfg.d_model
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[..., None] / (10000.0 ** (dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
 def _cos_sin(cfg, positions):
+    """RoPE tables for `positions` ((S,), (B, S), or M-RoPE's (3, B, S));
+    None for sinusoidal models, whose positions enter at the embedding."""
+    if cfg.pos_embed != "rope":
+        return None, None
+    if cfg.mrope_sections is not None:
+        return mrope_cos_sin(positions, cfg.hd, cfg.mrope_sections,
+                             cfg.rope_base, cfg.cdtype)
     return rope_cos_sin(positions, cfg.hd, cfg.rope_base, cfg.cdtype)
+
+
+def _positions(cfg, x, pos0, positions):
+    """Add the sinusoidal embeddings of positions pos0 + arange(s) (pos0 a
+    scalar or a (B,) vector) to the embedded x, and give the RoPE tables
+    of `positions`, by default those positions (on all three M-RoPE
+    axes)."""
+    b, s = x.shape[0], x.shape[1]
+    pos_ids = _qpos(pos0, s, x.device)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sin_table(cfg, pos_ids if pos_ids.dim() == 2
+                           else pos_ids[None], x.dtype)
+    if positions is None:
+        if cfg.mrope_sections is not None:
+            p = pos_ids.expand(b, s)
+            positions = torch.stack([p, p, p])
+        else:
+            positions = pos_ids
+    return x, _cos_sin(cfg, positions)
 
 
 def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
     """Embeddings -> blocks -> final norm, from cast params."""
-    x = _embed(cfg, params, tokens)
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    cos, sin = _cos_sin(cfg, positions)
+    x, (cos, sin) = _positions(cfg, _embed(cfg, params, tokens), 0,
+                               positions)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         if remat:
@@ -342,20 +402,22 @@ def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
 
 
 def forward(params, tokens, cfg: TransformerConfig, positions=None):
-    """tokens (B, S) int -> logits (B, S, V)."""
+    """tokens (B, S) int, or (B, n_q, S) for multi-codebook -> logits
+    (B, S, V) (or (B, n_q, S, V))."""
     params = cast_params(params, cfg)
     return _unembed(cfg, params, _hidden(params, tokens, cfg, positions))
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
     """Mean next-token cross-entropy.  batch: {tokens, labels[,
-    positions]}.  With cfg.loss_chunk > 0 dividing the sequence, the
-    (B, S, V) logits are never materialised: the xent runs chunk by
-    chunk."""
+    positions]}.  With cfg.loss_chunk > 0 dividing the sequence (and one
+    codebook), the (B, S, V) logits are never materialised: the xent runs
+    chunk by chunk."""
     labels = batch["labels"]
     params = cast_params(params, cfg)
     x = _hidden(params, batch["tokens"], cfg, batch.get("positions"))
-    if cfg.loss_chunk and labels.shape[-1] % cfg.loss_chunk == 0:
+    if cfg.loss_chunk and cfg.n_codebooks == 1 \
+            and labels.shape[-1] % cfg.loss_chunk == 0:
         return chunked_lm_loss(x, params["head"], labels,
                                chunk=cfg.loss_chunk,
                                logit_scale=cfg.logit_scale)
@@ -379,19 +441,19 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
 
 def decode_step(params, cache, tokens, cfg: TransformerConfig,
                 positions=None, last_idx=None):
-    """One decode step: tokens (B, S_new) (1 for decode, > 1 for prefill).
-    cache["pos"] is a scalar or a (B,) per-row vector.  Returns
-    (logits (B, V), cache) with k/v written in place and pos advanced.
+    """One decode step: tokens (B, S_new) (1 for decode, > 1 for prefill),
+    or (B, n_q, S_new) for multi-codebook.  cache["pos"] is a scalar or a
+    (B,) per-row vector.  Returns (logits (B, V) or (B, n_q, V), cache)
+    with k/v written in place and pos advanced.
 
     `last_idx`: optional (B,) index of the position whose logits to return
-    (ragged bucketed prefill reads row b at prompt_len - 1)."""
+    (ragged bucketed prefill reads row b at prompt_len - 1; one codebook
+    only, as in the reference)."""
     params = cast_params(params, cfg)
     x = _embed(cfg, params, tokens)
     b, s = x.shape[0], x.shape[1]
     pos0 = cache["pos"]
-    if positions is None:
-        positions = _qpos(pos0, s, x.device)
-    cos, sin = _cos_sin(cfg, positions)
+    x, (cos, sin) = _positions(cfg, x, pos0, positions)
     kv_len = pos0 + s
     for i in range(cfg.n_layers):
         x = _block(cfg, x, _layer(params, i), cos, sin, q_offset=pos0,
@@ -399,10 +461,13 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
     x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
     new = {"k": cache["k"], "v": cache["v"], "pos": pos0 + s}
     if last_idx is not None:
+        if cfg.n_codebooks != 1:
+            raise ValueError("last_idx requires a single codebook")
         # gather each row's last real position before the unembed
         x = x.gather(1, last_idx.long()[:, None, None].expand(b, 1,
                                                               x.shape[2]))
-    return _unembed(cfg, params, x[:, -1:])[:, -1], new
+    logits = _unembed(cfg, params, x[:, -1:])
+    return (logits[:, :, -1] if cfg.n_codebooks > 1 else logits[:, -1]), new
 
 
 def init_paged_pool(cfg: TransformerConfig, pool_pages: int, page_size: int,
@@ -419,13 +484,16 @@ def paged_decode_step(params, cache, tokens, cfg: TransformerConfig):
     """One paged decode step: tokens (B, 1).  cache holds the "kp"/"vp"
     pools (L, P+1, ps, Hkv, dh), "ptab" (B, max_pages) int32 and "pos"
     (B,).  Returns (logits (B, V), cache) with the pools written in place;
-    positions and rope follow decode_step exactly, so paged == dense."""
+    positions, RoPE / M-RoPE and sinusoidal embeddings follow decode_step
+    exactly, so paged == dense."""
     params = cast_params(params, cfg)
+    if cfg.n_codebooks != 1:
+        raise ValueError("paged decode takes single-codebook token streams")
     x = _embed(cfg, params, tokens)
     if x.shape[1] != 1:
         raise ValueError("paged_decode_step decodes one token per row")
     pos0 = cache["pos"]
-    cos, sin = _cos_sin(cfg, _qpos(pos0, 1, x.device))
+    x, (cos, sin) = _positions(cfg, x, pos0, None)
     kv_len = pos0 + 1
     ptab = cache["ptab"]
     for i in range(cfg.n_layers):

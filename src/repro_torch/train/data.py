@@ -5,7 +5,10 @@ replaying step s regenerates bit-identical batches, so no data-loader
 state needs checkpointing (only the step counter).  Tokens mix
 Zipf-distributed unigrams with a deterministic repetition pattern (every
 fourth position repeats one random token per row), a learnable
-distribution, so training tests can assert actual learning.
+distribution, so training tests can assert actual learning.  The kinds
+are the reference's: "tokens" (B, S); "codebooks" (B, n_q, S), musicgen's
+codebook frames; "vlm", tokens plus the (3, B, S) M-RoPE position ids of
+qwen2-vl (text positions on all three axes).
 
 The draws go through the port's threefry (`serving/prng.py`), so the keys,
 the uniforms and the repetition pattern are the reference's bit for bit.
@@ -32,7 +35,8 @@ class DataConfig:
     seq_len: int = 128
     global_batch: int = 8
     seed: int = 0
-    kind: str = "tokens"          # "codebooks" | "vlm": not ported
+    n_codebooks: int = 1          # musicgen-style streams
+    kind: str = "tokens"          # "tokens" | "codebooks" | "vlm"
 
 
 def _zipf_probs(vocab: int) -> np.ndarray:
@@ -75,10 +79,8 @@ class SyntheticLM:
     """Deterministic, replayable synthetic LM token stream on `device`."""
 
     def __init__(self, cfg: DataConfig, device="cuda"):
-        if cfg.kind != "tokens":
-            raise NotImplementedError(
-                f"DataConfig.kind {cfg.kind!r}: only 'tokens' is ported "
-                f"(the codebook and VLM families are not)")
+        if cfg.kind not in ("tokens", "codebooks", "vlm"):
+            raise ValueError(f"unknown DataConfig.kind {cfg.kind!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self._cdf = torch.from_numpy(_zipf_cdf(cfg.vocab_size)).to(
@@ -87,19 +89,28 @@ class SyntheticLM:
 
     def _draw(self, steps: torch.Tensor) -> dict:
         """Batches for a tensor of step ids: leading axes steps.shape."""
-        b, s1 = self.cfg.global_batch, self.cfg.seq_len + 1
+        cfg = self.cfg
+        b, s1 = cfg.global_batch, cfg.seq_len + 1
+        rows = (b, cfg.n_codebooks) if cfg.kind == "codebooks" else (b,)
+        n = int(np.prod(rows))
         keys = prng.split(prng.fold_in(self._key, steps))    # (..., 2, 2)
         kz, kr = keys[..., 0, :], keys[..., 1, :]
-        u = prng.uniform(kz, b * s1, minval=0.0)
+        u = prng.uniform(kz, n * s1, minval=0.0)
         toks = torch.searchsorted(self._cdf, self._cdf[-1] * (1 - u))
-        toks = toks.reshape(*steps.shape, b, s1)
+        toks = toks.reshape(*steps.shape, *rows, s1)
         # overlay the deterministic local repetition pattern (learnable)
-        rep = prng.randint(kr, b, 0, self.cfg.vocab_size)
-        rep = rep.reshape(*steps.shape, b, 1)
+        rep = prng.randint(kr, n, 0, cfg.vocab_size)
+        rep = rep.reshape(*steps.shape, *rows, 1)
         pattern = torch.arange(s1, device=self.device) % 4 == 3
         toks = torch.where(pattern, rep, toks).to(torch.int32)
-        return {"tokens": toks[..., :-1].contiguous(),
-                "labels": toks[..., 1:].contiguous()}
+        batch = {"tokens": toks[..., :-1].contiguous(),
+                 "labels": toks[..., 1:].contiguous()}
+        if cfg.kind == "vlm":
+            # text-only positions: t, h and w all count the sequence
+            p = torch.arange(s1 - 1, dtype=torch.int32, device=self.device)
+            batch["positions"] = p.expand(*steps.shape, 3, b,
+                                          s1 - 1).contiguous()
+        return batch
 
     def _steps(self, steps) -> torch.Tensor:
         if torch.is_tensor(steps):     # already on the device: no copy

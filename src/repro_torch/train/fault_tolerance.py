@@ -465,6 +465,12 @@ class DiLoCoSupervisor:
             self.ft.keep, copy=False)
         self.stats["checkpoints"] += len(self.ft.checkpoint_dirs)
 
+    def join_checkpoints(self):
+        """Wait for in-flight background checkpoint writes."""
+        for t in self._ckpt_threads:
+            t.join()
+        self._ckpt_threads = []
+
     def _mask_for(self, r: int):
         if self.liveness is None:
             return np.ones(self.dcfg.n_pods, np.float32), None
@@ -486,8 +492,7 @@ class DiLoCoSupervisor:
     def restore_from_checkpoint(self):
         """Restart-class (SEFI/UECC) recovery: the newest verifiable
         replica wins, the round counter follows the restored step."""
-        for t in self._ckpt_threads:
-            t.join()
+        self.join_checkpoints()
         step, state = ckpt.restore_latest(self._snap,
                                           self.ft.checkpoint_dirs)
         self._snap = state
@@ -589,8 +594,7 @@ class DiLoCoSupervisor:
                 self.publisher.advance(self.round, self._snap_round)
             if on_round is not None:
                 on_round(self)
-        for t in self._ckpt_threads:
-            t.join()
+        self.join_checkpoints()
         self._finalize_mask_stats()
         return self.history
 

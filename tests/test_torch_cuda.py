@@ -1,7 +1,9 @@
 """Card-only tests of the PyTorch port: the CUDA decode-attention (B1,
 B2), flash-attention (B3) and RG-LRU scan (B4) kernels against their
-plain versions at the full widths of the demo LM and recurrentgemma-2b,
-and the engines on the card (the MoE and xLSTM families too).  Each
+plain versions at the full widths of the demo LM and recurrentgemma-2b
+(B1/B2 also at the decode widths of minicpm-2b, stablelm-12b, command-r-35b
+and qwen2.5-32b), and the engines on the card (the MoE and xLSTM families
+and the new transformer branches too).  Each
 skips, with its reason, where there is no CUDA device; the file imports
 no JAX, so it also runs on a machine without it:
 
@@ -311,6 +313,70 @@ def test_decode_kernel_at_head_dim_256_mqa(cuda_device, dtype):
     ref = decode_attention_reference(q, kc, vc, lens)
     _assert_close_to_plain(out, ref, dtype)
     assert bool((out[0] == 0).all())
+
+
+def _planted_decode(q, kc, vc, lens, every):
+    """The plain decode attention leaving out positions t % every ==
+    every - 1: what a kernel that lost one position per split gives."""
+    b, h, dh = q.shape
+    m, hkv = kc.shape[1], kc.shape[2]
+    s = torch.einsum("bhgd,bmhd->bhgm", q.float().reshape(b, hkv, -1, dh),
+                     kc.float()) * dh ** -0.5
+    t = torch.arange(m, device=q.device)
+    keep = (t < lens[:, None]) & (t % every != every - 1)
+    s = s.masked_fill(~keep[:, None, None], float("-inf"))
+    return torch.einsum("bhgm,bmhd->bhgd", s.softmax(-1), vc.float()
+                        ).reshape(b, h, dh).to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,hkv,dh", [(32, 8, 160), (64, 8, 128),
+                                      (40, 8, 128), (36, 36, 64)])
+def test_decode_kernels_at_the_new_serving_widths(cuda_device, dtype, h,
+                                                  hkv, dh):
+    """B1 and B2 at stablelm-12b's decode widths (dh 160: five P.V
+    n-tiles per warp, the fifth from an x2 ldmatrix), command-r-35b's and
+    qwen2.5-32b's (dh 128, groups of 8 and 5) and minicpm-2b's (MHA, a
+    group of 1 padded to 16 rows), ragged kv_len (0, non-multiples of 64,
+    full rows) against the plain version; a second call and the paged
+    kernel over shuffled pages with a NaN trash page give the same
+    bits."""
+    b, m, ps = 8, 512, 16
+    q, kc, vc = _decode_inputs(cuda_device, dtype, b, h, hkv, m, dh, dh + h)
+    lens = torch.tensor([0, 1, 63, 65, 200, 232, m - 1, m],
+                        dtype=torch.int32, device=cuda_device)
+    out = decode_attention(q, kc, vc, lens)
+    ref = decode_attention_reference(q, kc, vc, lens)
+    _assert_close_to_plain(out, ref, dtype)
+    assert bool((out[0] == 0).all())
+    assert torch.equal(decode_attention(q, kc, vc, lens), out)
+    mp = m // ps
+    perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
+        dh)).to(cuda_device)
+    kp = torch.full((b * mp + 1, ps, hkv, dh), float("nan"), dtype=kc.dtype,
+                    device=cuda_device)
+    vp = kp.clone()
+    live = torch.arange(mp, device=cuda_device) < ((lens + ps - 1) // ps
+                                                   )[:, None]
+    ptab = torch.where(live, perm.reshape(b, mp), b * mp).to(torch.int32)
+    kp[ptab[live].long()] = kc.reshape(b, mp, ps, hkv, dh)[live]
+    vp[ptab[live].long()] = vc.reshape(b, mp, ps, hkv, dh)[live]
+    assert torch.equal(paged_decode_attention(q, kp, vp, ptab, lens), out)
+
+
+@pytest.mark.cuda
+def test_bf16_limit_catches_a_planted_fault_at_head_dim_160(cuda_device):
+    """At stablelm-12b's widths the bf16 limit passes B1 and fails the
+    plain version that leaves out one position in 64 (one per split)."""
+    b, h, hkv, m, dh = 4, 32, 8, 512, 160
+    q, kc, vc = _decode_inputs(cuda_device, "bfloat16", b, h, hkv, m, dh, 5)
+    lens = torch.tensor([512, 511, 300, 200], dtype=torch.int32,
+                        device=cuda_device)
+    ref = decode_attention_reference(q, kc, vc, lens)
+    assert _bf16_share(decode_attention(q, kc, vc, lens), ref) <= 1
+    planted = _planted_decode(q, kc, vc, lens, CHUNK)
+    assert _bf16_share(planted, ref) > 1
 
 
 def _decode_inputs(device, dtype, b, h, hkv, m, dh, seed):
@@ -639,3 +705,53 @@ def test_moe_and_xlstm_engines_on_card_equal_the_cpu(cuda_device, arch):
         streams.append({r.uid: r.generated for r in eng.run()})
     assert streams[0] == streams[1] == streams[2]
     assert all(len(v) == 9 for v in streams[0].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "stablelm-12b",
+                                  "command-r-35b", "qwen2.5-32b",
+                                  "qwen2-vl-2b", "musicgen-medium"])
+def test_new_transformer_branches_on_card_equal_the_cpu(cuda_device, arch):
+    """Reduced widths at head_dim 64 (which B1 and B3 take), f32: the
+    training forward (B3) and a prefill + decode (B1) on the card within
+    1e-3 of the CPU; the token LMs' engine streams equal the CPU's."""
+    cfg = registry.get_reduced_config(arch, compute_dtype="float32",
+                                      head_dim=64)
+    if cfg.mrope_sections:
+        cfg = registry.get_reduced_config(arch, compute_dtype="float32",
+                                          head_dim=64,
+                                          mrope_sections=(16, 8, 8))
+    fns = registry.model_fns(cfg)
+    cpu = fns.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu = {k: ({kk: vv.to(cuda_device) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(cuda_device))
+           for k, v in cpu.items()}
+    rng = np.random.default_rng(1)
+    shape = (2, cfg.n_codebooks, 16) if cfg.n_codebooks > 1 else (2, 16)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+    want = fns.forward(cpu, toks, cfg)
+    got = fns.forward(gpu, toks.to(cuda_device), cfg)
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+    logits = {}
+    for dev, p in (("cpu", cpu), (cuda_device, gpu)):
+        cache = fns.init_cache(cfg, 2, 64, device=dev)
+        cache["pos"] = torch.zeros(2, dtype=torch.int32, device=dev)
+        out, cache = fns.decode_step(p, cache, toks.to(dev), cfg)
+        step, _ = fns.decode_step(p, cache, toks[..., :1].to(dev), cfg)
+        logits[str(dev)] = (out.cpu(), step.cpu())
+    for a, b in zip(logits["cpu"], logits[str(cuda_device)]):
+        assert (a - b).abs().max().item() <= 1e-3
+    if cfg.n_codebooks > 1 or cfg.mrope_sections:
+        return                      # trained only: no engine serves them
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, 6)]
+    streams = []
+    for dev, p, page in (("cpu", cpu, 0), (cuda_device, gpu, 0),
+                         (cuda_device, gpu, 16)):
+        eng = ServingEngine(cfg, fns, p, EngineConfig(
+            max_batch=3, max_len=64, seed=7, decode_block=4, page_size=page))
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=pr, max_new_tokens=9,
+                               temperature=3.0 if uid % 2 else 0.0))
+        streams.append({r.uid: r.generated for r in eng.run()})
+    assert streams[0] == streams[1] == streams[2]

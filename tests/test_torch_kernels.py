@@ -201,7 +201,8 @@ def test_kernel_launcher_rejects_what_it_cannot_take(bad, match):
 
 # (dh, chunk): the CUDA source's chunk at every head dim it compiles,
 # chunk 128, and a small chunk that makes many splits
-SPLIT = [(64, 64), (64, 128), (128, 64), (128, 128), (256, 64), (64, 16)]
+SPLIT = [(64, 64), (64, 128), (128, 64), (128, 128), (160, 64), (256, 64),
+         (64, 16)]
 
 
 def test_split_cases_cover_the_kernel_instances():

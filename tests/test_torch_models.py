@@ -73,15 +73,6 @@ def test_init_params_shapes_and_count_match_reference(full):
     assert torch.equal(tp["embed"], again["embed"])
 
 
-def test_unported_branches_raise():
-    cfg = treg.get_reduced_config(ARCH, mlp_act="gelu")
-    with pytest.raises(NotImplementedError, match="mlp_act"):
-        ttf.init_params(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="parallel_block"):
-        ttf.forward({}, torch.zeros(1, 2, dtype=torch.long),
-                    treg.get_reduced_config(ARCH, parallel_block=True))
-
-
 def test_params_from_jax_rejects_other_trees(model):
     jcfg, tcfg, jparams, _ = model
     tree = jax.tree.map(np.asarray, jparams)

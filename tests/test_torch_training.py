@@ -319,11 +319,6 @@ def test_pod_step_grid_is_the_reference_grid():
                                   j_grid(3, 2, 4))
 
 
-def test_only_token_streams_are_ported():
-    with pytest.raises(NotImplementedError, match="tokens"):
-        SyntheticLM(DataConfig(kind="vlm"), "cpu")
-
-
 # ------------------------------------------------------------------ CLI --
 
 def _train_cli(*args):
@@ -354,3 +349,43 @@ def test_train_cli_refuses_unported_flags():
         proc = _train_cli("--device", "cpu", flag, "2")
         assert proc.returncode != 0
         assert f"unrecognized arguments: {flag}" in proc.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ("--steps", "2"),
+    ("--diloco-pods", "2", "--inner-steps", "2", "--steps", "2")])
+def test_train_cli_error_is_not_hidden_by_its_checkpoint_writers(
+        monkeypatch, args):
+    """A run that fails while a checkpoint is still being written raises
+    its own error: the writer finishes before the launcher removes its
+    checkpoint directory, so no FileNotFoundError follows from it."""
+    import threading
+    import time
+
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint, fault_tolerance
+
+    savez = checkpoint.np.savez
+
+    def slow_savez(*a, **k):      # the writer is mid-checkpoint here
+        time.sleep(0.3)
+        return savez(*a, **k)
+
+    def fail(self, *a, **k):
+        if isinstance(self, fault_tolerance.FaultTolerantTrainer):
+            self._save_checkpoint(0)
+        raise RuntimeError("the run's own error")
+
+    writer_errors = []
+    monkeypatch.setattr(checkpoint.np, "savez", slow_savez)
+    monkeypatch.setattr(threading, "excepthook", writer_errors.append)
+    for cls, name in ((fault_tolerance.FaultTolerantTrainer, "run"),
+                      (fault_tolerance.FaultTolerantTrainer, "run_fused"),
+                      (fault_tolerance.DiLoCoSupervisor, "run")):
+        monkeypatch.setattr(cls, name, fail)
+    with pytest.raises(RuntimeError, match="the run's own error"):
+        launch.main(["--device", "cpu", *args])
+    for t in threading.enumerate():
+        if t.name.endswith("(save)"):
+            t.join()
+    assert writer_errors == []
