@@ -9,6 +9,7 @@
                                      # no result line
   python3 chip_smoke.py --phase 17   # phases 1, the new rows of 2 and 2b
                                      # and 17-19 only, no result line
+  python3 chip_smoke.py --phase 20   # phases 1 and 20 only, no result line
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -47,8 +48,9 @@ phase took.
    the training shape beside the FLOP bound, the plain version and SDPA.
    The new rows: the same checks (no planted fault, no gradients) and
    times at qwen2-vl-2b's training shape (B 8, H 12/2, S 1024, dh 128:
-   `flash_attention_dh128`) and musicgen-medium's (H 24/24, dh 64:
-   `flash_attention_mha`).
+   `flash_attention_dh128`), musicgen-medium's (H 24/24, dh 64:
+   `flash_attention_mha`) and stablelm-12b's (H 32/8, dh 160:
+   `flash_attention_dh160`, where the planted fault must fail too).
    2c. The RG-LRU scan kernel (B4) against its plain version, f32
    bitwise: the serve prefill shape (16, 256, 2560), the long prefill's
    (2, 2048, 2560), B = 1 (1, 2048, 2560) and (3, 1001, 2600) on the TMA
@@ -210,20 +212,48 @@ phase took.
    token and peak memory per run; minicpm's 16 requests x 16 tokens under
    torch.profiler.
 18. Train musicgen-medium (12 of 48 layers: 4 codebooks, sinusoidal
-   positions, GELU MLP, MHA 24/24) and qwen2-vl-2b (8 of 28: M-RoPE over
-   "vlm" batches' (3, B, S) positions, H 12/2, dh 128) at their published
-   widths, bf16 compute, f32 masters drawn on the card, seq 1024, batch
-   8, the port's SyntheticLM of their kind, under
+   positions, GELU MLP, MHA 24/24), qwen2-vl-2b (8 of 28: M-RoPE over
+   "vlm" batches' (3, B, S) positions, H 12/2, dh 128) and stablelm-12b
+   (2 of 40: LayerNorm, H 32/8, dh 160, vocab 100352 untied) at their
+   published widths, bf16 compute, f32 masters drawn on the card, seq
+   1024, batch 8, the port's SyntheticLM of their kind, under
    torch.use_deterministic_algorithms(True): run_fused for 8 steps (one
-   drain), then run for 8 from the same state.  Every loss finite;
-   run == run_fused losses and final state bitwise; B3 launched 2 x
-   n_layers x 8 times per run; no host sync inside the fused block.
+   drain), then run for 8 from the same state (drawn anew from the
+   seed).  Every loss finite; run == run_fused losses and final state
+   bitwise; B3 launched 2 x n_layers x 8 times per run; no host sync
+   inside the fused block.
 19. Reference: the six configs' reduced widths at head_dim 64 (qwen2-vl's
-   M-RoPE sections 16/8/8), f32, on the card against the CPU: the loss of
-   one "tokens", "codebooks" or "vlm" batch (B3), a prefill and 8 decode
-   steps (B1; musicgen's (B, 4, V) logits) within 1e-3 with equal greedy
-   tokens, and the token LMs' engines (dense and paged) giving the CPU's
-   token streams.
+   M-RoPE sections 16/8/8) and at their own reduced head dims (12, 16,
+   20, which the kernels run zero-padded to 64), f32, on the card against
+   the CPU: the loss of one "tokens", "codebooks" or "vlm" batch (B3), a
+   prefill and 8 decode steps (B1; musicgen's (B, 4, V) logits) within
+   1e-3 with equal greedy tokens, and the token LMs' engines (dense and
+   paged) giving the CPU's token streams.  Then the train and serve
+   launchers at their defaults (the reduced demo LM, dh 16, on the card,
+   side by side) must exit 0 and print B3 and B1 launches above 0.
+20. Slice 8.  (a) The SDC injector: identical f32 and bf16 trees flipped
+   on the card and the CPU with the same keys are bitwise equal (1, 64
+   and 5,000 flips, and 200 colliding flips on 3 elements), with equal
+   changed-element counts; the demo LM at full width (seq 1024, batch
+   8) under FaultTolerantTrainer.run with an SDCInjector and a forced
+   burst of 2,000 flips at step 3: detected, rolled back, replayed, every
+   kept loss finite; the train launcher (6 steps, both runs side by
+   side) with --sdc-rate-multiplier 2e3 exits 0 having injected,
+   detected and rolled back, and with 1e5 raises "persistent
+   non-finite".  (b) The J2
+   orbit in float64 on the card: simulate_cluster (81 satellites, one
+   orbit at dt 5 s) within 1e-6 m and 1e-9 m/s of the CPU port, direct
+   neighbours 100-200 m; the energy-matched Keplerian cluster closes to
+   < 5 mm after an orbit at dt 2 s; j2_drift_rate at kappa 1.0 and 0.999
+   over 6 orbits (both in one integration), the tuned rate under half
+   the base;
+   ConstellationLinkModel(integrate=True) at 8 pods, masks equal to the
+   CPU port's.  (c) train_controller at the reference test's problem
+   (3 x 3 lattice, 20 intervals x 4 substeps, 25 iterations, float64) on
+   the card and the CPU from the same draws: loss histories within 1e-8
+   relative, the loss under 0.6x its start, rms error under 0.8x free
+   fall's.  The CPU sides of (b) and (c) run in one worker process while
+   the card works.  Each prints its seconds.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -232,12 +262,12 @@ name and power limit, and before that one JSON line listing the kernels
 B1 at dh 256 in two rows: the serve run's rings and full rings, and B1
 and B2 at H 16 / Hkv 8) with their launches on their main paths (B1's
 dh-64 row phases 3, 9, 11 and 12; B2's phases 3 and 11; B3's phases 5,
-8 and 9; B4's serve row and B1's dh-256 serve-rings row phase 6's
+8, 9 and 20a; B4's serve row and B1's dh-256 serve-rings row phase 6's
 16-slot runs and phase 12; the long rows phase 6's long runs; the H 16
 rows phase 14; the `_mha`, `_dh160`, `_dh128` and `_h40` rows phase 17's
 minicpm-2b, stablelm-12b, command-r-35b and qwen2.5-32b runs; the new B3
-rows phase 18), errors, times and bounds; B4's rows also name their copy
-path.
+rows phase 18), errors, times and bounds;
+B4's rows also name their copy path.
 """
 import gc
 import json
@@ -247,7 +277,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 # cuBLAS is deterministic only with a fixed workspace, set before the
@@ -494,11 +525,15 @@ def flash_bound(b, h, hkv, sq, skv, dh, causal, itemsize):
 
 
 # B3's timed shapes: the demo LM's training shape (the main row), then
-# qwen2-vl-2b's (H 12/2, dh 128: a GQA group of 6) and musicgen-medium's
-# (H 24/24, MHA) at seq 1024, batch 8 (phase 18), each a row of its own
+# qwen2-vl-2b's (H 12/2, dh 128: a GQA group of 6), musicgen-medium's
+# (H 24/24, MHA) and stablelm-12b's (H 32/8, dh 160) at seq 1024, batch 8
+# (phase 18), each a row of its own
 FLASH_ROWS = (("flash_attention", (8, 12, 4, 1024, 64)),
               ("flash_attention_dh128", (8, 12, 2, 1024, 128)),
-              ("flash_attention_mha", (8, 24, 24, 1024, 64)))
+              ("flash_attention_mha", (8, 24, 24, 1024, 64)),
+              ("flash_attention_dh160", (8, 32, 8, 1024, 160)))
+# the timed shapes whose bf16 causal run must catch a planted fault
+PLANTED = ((8, 12, 4, 1024, 64), (8, 32, 8, 1024, 160))
 
 
 def flash_phase(torch, timer, names, more=True):
@@ -561,8 +596,8 @@ def flash_phase(torch, timer, names, more=True):
                       f"limit); two calls bitwise equal", flush=True)
                 if (b, s, dtype, causal) == (8, 1024, "bfloat16", True):
                     errs[(b, h, hkv, s, dh)] = err
-                if (b, h, hkv, s, dh, dtype, causal) == (
-                        8, 12, 4, 1024, 64, "bfloat16", True):
+                if (b, h, hkv, s, dh) in PLANTED and (dtype, causal) == (
+                        "bfloat16", True):
                     # the plain version leaving out keys 127, 255, ...:
                     # what a kernel that lost one key per tile gives
                     planted = plain(q, k, v, causal, keep=lambda kpos:
@@ -571,9 +606,9 @@ def flash_phase(torch, timer, names, more=True):
                     check(p_share > 1, f"the bf16 limit passes a planted "
                           f"fault (max abs err {p_err}, {p_share:.3f} of "
                           f"the limit)")
-                    print(f"  planted fault (one key in 128 left out): "
-                          f"{p_err:.3e} ({p_share:.3f} of the limit, "
-                          f"caught)", flush=True)
+                    print(f"  planted fault at dh {dh} (one key in 128 "
+                          f"left out): {p_err:.3e} ({p_share:.3f} of the "
+                          f"limit, caught)", flush=True)
 
     if more:
         flash_gradients(torch, inputs, plain)
@@ -2724,7 +2759,10 @@ def branch_serve_phase(torch, arch):
 
 
 # phase 18's configs: arch -> layers kept
-BRANCH_TRAIN = {"qwen2-vl-2b": 8, "musicgen-medium": 12}
+# stablelm-12b at 2 of 40 layers (1.58B params): f32 AdamW holds old and
+# new state at once (~30 bytes a parameter) beside (8, 1024, 100352) f32
+# logits, so 4 layers (2.14B) would not leave room on one 80 GB card
+BRANCH_TRAIN = {"qwen2-vl-2b": 8, "musicgen-medium": 12, "stablelm-12b": 2}
 
 
 def branch_train_phase(torch, arch):
@@ -2732,7 +2770,9 @@ def branch_train_phase(torch, arch):
     seq 1024, batch 8, the port's SyntheticLM of the arch's kind, random
     f32 masters drawn on the card from seed 0, bf16 compute;
     FaultTolerantTrainer.run_fused for 8 steps (one drain) and run for 8
-    from the same state, bitwise equal.  Returns B3's launches."""
+    from the same state (drawn anew from the seed for each run, so no
+    third copy of the state sits beside a step's old and new), bitwise
+    equal.  Returns B3's launches."""
     import numpy as np
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2741,7 +2781,7 @@ def branch_train_phase(torch, arch):
                                    FaultTolerantTrainer, FTConfig,
                                    SyntheticLM, TrainConfig, init_train_state,
                                    make_fused_steps, make_train_step)
-    from repro_torch.train.tree import tree_paths
+    from repro_torch.train.tree import tree_map, tree_paths
     dev = torch.device("cuda")
     full = registry.get_config(arch)
     cfg = registry.get_config(arch, n_layers=BRANCH_TRAIN[arch])
@@ -2755,9 +2795,12 @@ def branch_train_phase(torch, arch):
                                   global_batch=batch, seed=0,
                                   n_codebooks=cfg.n_codebooks, kind=kind),
                        dev)
+    def state0():
+        return init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                fns, dev)
+
     t0 = time.perf_counter()
-    state0 = init_train_state(torch.Generator(dev).manual_seed(0), cfg, fns,
-                              dev)
+    first = state0()
     torch.cuda.synchronize()
     shapes = {n: tuple(v.shape) for n, v in data.batch_at(0).items()}
     print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, d "
@@ -2768,7 +2811,8 @@ def branch_train_phase(torch, arch):
           flush=True)
     step_fn = make_train_step(cfg, fns, tcfg)
     fused = make_fused_steps(cfg, fns, tcfg)
-    step_fn(state0, data.batch_at(0))     # warm-up: cuBLAS, allocator
+    step_fn(first, data.batch_at(0))     # warm-up: cuBLAS, allocator
+    del first
     want_launches = 2 * cfg.n_layers * steps
     runs = {}
     for mode in ("run_fused", "run"):
@@ -2778,7 +2822,7 @@ def branch_train_phase(torch, arch):
                       drain_every=k)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tr = FaultTolerantTrainer(step_fn, state0, data, ft,
+        tr = FaultTolerantTrainer(step_fn, state0(), data, ft,
                                   fused_steps=fused)
         flash_attention.launches = 0
         t0 = time.perf_counter()
@@ -2801,7 +2845,13 @@ def branch_train_phase(torch, arch):
               f"run")
         check(launches == want_launches, f"{arch} {mode}: B3 launched "
               f"{launches} times, want 2 x {cfg.n_layers} x {steps}")
-        runs[mode] = (losses, tr.state, launches, st)
+        # on the host: a third state beside the next run's old and new
+        # would not fit beside stablelm-12b's step
+        runs[mode] = (losses, tree_map(lambda x: x.cpu(), tr.state),
+                      launches, st)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
     check(runs["run_fused"][3]["drains"] == steps // k,
           f"{arch}: run_fused drained {runs['run_fused'][3]['drains']} "
           f"times, want {steps // k}")
@@ -2817,12 +2867,14 @@ def branch_train_phase(torch, arch):
     return runs["run_fused"][2] + runs["run"][2]
 
 
-def branch_reference(torch):
+def branch_reference(torch, head_dim):
     """Phase 19: the six configs' reduced widths at head_dim 64 (qwen2-vl
-    with M-RoPE sections 16/8/8), f32, on the card against the CPU: the
-    training loss (B3 on the card), a prefill and 8 decode steps (B1)
-    within 1e-3 with the same greedy tokens; the token LMs' engines
-    (dense and paged) give the CPU's token streams."""
+    with M-RoPE sections 16/8/8), or (head_dim None) at their own reduced
+    head dims (12, 16, 20: the kernels run them zero-padded to 64), f32,
+    on the card against the CPU: the training loss (B3 on the card), a
+    prefill and 8 decode steps (B1) within 1e-3 with the same greedy
+    tokens; the token LMs' engines (dense and paged) give the CPU's token
+    streams."""
     import numpy as np
 
     from repro_torch.models import registry
@@ -2833,9 +2885,11 @@ def branch_reference(torch):
     cpu_dev = torch.device("cpu")
     for arch in ("minicpm-2b", "stablelm-12b", "command-r-35b",
                  "qwen2.5-32b", "qwen2-vl-2b", "musicgen-medium"):
-        over = dict(compute_dtype="float32", head_dim=64)
-        if arch == "qwen2-vl-2b":
-            over["mrope_sections"] = (16, 8, 8)
+        over = dict(compute_dtype="float32")
+        if head_dim is not None:
+            over["head_dim"] = head_dim
+            if arch == "qwen2-vl-2b":
+                over["mrope_sections"] = (16, 8, 8)
         cfg = registry.get_reduced_config(arch, **over)
         fns = registry.model_fns(cfg)
         kind = registry.input_kind(arch)
@@ -2872,7 +2926,7 @@ def branch_reference(torch):
                   f"{arch}: card and CPU greedy tokens differ at step {i}")
             nxt = lg[0].argmax(-1)[..., None]
         check(worst <= 1e-3, f"{arch}: card vs CPU logits differ by {worst}")
-        line = (f"  {cfg.name} (head_dim 64) f32: loss card vs CPU "
+        line = (f"  {cfg.name} (head_dim {cfg.hd}) f32: loss card vs CPU "
                 f"{lerr:.3e}, prefill + 8 decode steps logits max abs err "
                 f"{worst:.3e} (tol 1e-3), greedy tokens equal")
         if kind == "tokens":
@@ -2902,10 +2956,12 @@ def branch_rows(torch, timer):
         for r in kernel_phase(torch, timer, h, hkv, ((16, 512, 232, 256),),
                               suffix, dh):
             rows[r["name"]] = r
-    print("  B3 at qwen2-vl-2b's and musicgen-medium's training widths:",
-          flush=True)
+    print("  B3 at qwen2-vl-2b's, musicgen-medium's and stablelm-12b's "
+          "training widths:", flush=True)
     for r in flash_phase(torch, timer, ("flash_attention_dh128",
-                                        "flash_attention_mha"), more=False):
+                                        "flash_attention_mha",
+                                        "flash_attention_dh160"),
+                         more=False):
         rows[r["name"]] = r
     return rows
 
@@ -2928,13 +2984,14 @@ def branch_paths(torch):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
-    phase("phase 18: train musicgen-medium and qwen2-vl-2b (published "
-          "widths, cut in depth, bf16, seq 1024, batch 8)")
+    phase("phase 18: train musicgen-medium, qwen2-vl-2b and stablelm-12b "
+          "(published widths, cut in depth, bf16, seq 1024, batch 8)")
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         for arch, name in (("qwen2-vl-2b", "flash_attention_dh128"),
-                           ("musicgen-medium", "flash_attention_mha")):
+                           ("musicgen-medium", "flash_attention_mha"),
+                           ("stablelm-12b", "flash_attention_dh160")):
             launches[name] = branch_train_phase(torch, arch)
             check(launches[name] > 0, f"{arch}: B3 never launched")
             gc.collect()
@@ -2942,9 +2999,415 @@ def branch_paths(torch):
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = True
-    phase("phase 19: the six reduced configs, card vs CPU")
-    branch_reference(torch)
+    phase("phase 19: the six reduced configs, card vs CPU, at head_dim 64 "
+          "and at their own head dims; the launchers at their defaults")
+    branch_reference(torch, head_dim=64)
+    branch_reference(torch, head_dim=None)
+    launcher_defaults()
     return launches
+
+
+CONTROL_ITERS = 25       # phase 20c's iterations (the reference test's)
+
+
+def _launchers(runs, timeout=600):
+    """Port launchers side by side, each in a process of its own on the
+    card (the launchers' default device): a list of (exit code, stdout,
+    stderr, s to its exit) in the order of `runs`.  Every process still
+    running at the time limit, or when this fails, is killed."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+             for _ in runs]
+    procs = [subprocess.Popen([sys.executable, "-m", *args], stdout=o,
+                              stderr=e, text=True, env=env, cwd=root)
+             for args, (o, e) in zip(runs, files)]
+    done = [None] * len(procs)
+    try:
+        while None in done:
+            check(time.perf_counter() - t0 < timeout,
+                  f"launchers still running after {timeout} s: {runs}")
+            for i, p in enumerate(procs):
+                if done[i] is None and p.poll() is not None:
+                    done[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for p, (o, e), dt in zip(procs, files, done):
+        o.seek(0)
+        e.seek(0)
+        out.append((p.returncode, o.read(), e.read(), dt))
+        o.close()
+        e.close()
+    return out
+
+
+def _printed_count(pattern, out, what):
+    """The integer a launcher printed after `pattern` (a regex ending
+    where the number starts); fails the run when it is not there."""
+    m = re.search(pattern + r"(\d+)", out)
+    check(m is not None, f"{what}: no count in the launcher's output:\n"
+          f"{out[-2000:]}")
+    return int(m.group(1))
+
+
+def launcher_defaults():
+    """Phase 19, last part: the train and serve launchers at their
+    defaults (the reduced demo LM, head_dim 16, on the card): both exit
+    0, and the counts they print show that B3 (train) and B1 (serve)
+    launched there, at the reduced head dim padded to 64.  The two run
+    side by side."""
+    from repro_torch.models import registry
+    dh = registry.get_reduced_config("suncatcher-lm-100m").hd
+    check(dh < 64, f"the launchers' default config has head_dim {dh}")
+    runs = ((("repro_torch.launch.train", "--steps", "8"), "B3",
+             r"flash-attention kernel launches "),
+            (("repro_torch.launch.serve", "--requests", "4"), "B1",
+             r"decode-attention kernel launches: dense "))
+    results = _launchers([args for args, _, _ in runs])
+    for (args, kernel, pattern), (rc, out, err, dt) in zip(runs, results):
+        check(rc == 0, f"{' '.join(args)} exited {rc}:\n{err[-3000:]}")
+        n = _printed_count(pattern, out, ' '.join(args))
+        check(n > 0, f"{' '.join(args)}: {kernel} never launched at dh {dh}")
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        print(f"  {' '.join(args)} (defaults, cuda, dh {dh}): exit 0 in "
+              f"{dt:.1f} s, {kernel} launched {n} times", flush=True)
+        for ln in lines[-3:]:
+            print(f"    {ln.strip()[:300]}", flush=True)
+
+
+def _tree_bits(torch, tree):
+    """A tree's leaves as integer views (bit patterns), sorted by key."""
+    from repro_torch.core.radiation.injection import _BITS_FOR
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _tree_bits(torch, v)
+        else:
+            out.append(v.contiguous().view(_BITS_FOR[v.dtype][0]).cpu())
+    return out
+
+
+def sdc_phase(torch):
+    """Phase 20a: the SDC injector.  Identical bf16 and f32 trees on the
+    card and the CPU take the same key's flips bitwise (also 200 flips on
+    3 elements, where draws collide), with equal bit-pattern counts;
+    the demo LM at full width under the per-step loop with an injector
+    and a forced burst of 2,000 flips at step 3: the screens detect it,
+    roll back and replay, and every kept loss is finite; the train
+    launcher (6 steps; both runs side by side) with --sdc-rate-multiplier
+    2e3 finishes with flips injected, detected and rolled back (its
+    printed stats), and at 1e5 raises its "persistent non-finite"
+    RuntimeError.  Returns B3's launches."""
+    import numpy as np
+
+    from repro_torch.core.radiation import (RadiationEnvironment,
+                                            SDCInjector,
+                                            count_changed_elements,
+                                            flip_bits, inject_tree)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    from repro_torch.serving import prng
+    from repro_torch.train import (AdamWConfig, DataConfig,
+                                   FaultTolerantTrainer, FTConfig,
+                                   SyntheticLM, TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(20)
+    tree = {"w": torch.randn(768, 3072, generator=g),
+            "embed": {"tok": torch.randn(32768, 64, generator=g).bfloat16(),
+                      "b": torch.randn(7, generator=g)},
+            "norm": torch.randn(768, generator=g).bfloat16()}
+    for n in (1, 64, 5000):
+        key = prng.PRNGKey(n)
+        cpu = inject_tree(key, tree, n)
+        card = inject_tree(key, tree_map(lambda x: x.to(dev), tree), n)
+        a, b = _tree_bits(torch, cpu), _tree_bits(torch, card)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"SDC: {n} flips differ between the card and the CPU")
+        changed = [sum(count_changed_elements(x, y) for x, y in zip(
+            tree_leaves(t), tree_leaves(tree_map(lambda z: z.to(t_dev),
+                                                 tree))))
+                   for t, t_dev in ((cpu, "cpu"), (card, dev))]
+        check(changed[0] == changed[1] and 1 <= changed[0] <= n,
+              f"SDC: changed elements {changed} for {n} flips")
+        print(f"  inject_tree, {n} flips over f32 + bf16 leaves: card == CPU "
+              f"bitwise, {changed[0]} elements changed on both", flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(3, generator=g).to(dt)
+        cpu = flip_bits(prng.PRNGKey(9), x, 200)
+        card = flip_bits(prng.PRNGKey(9), x.to(dev), 200)
+        view = torch.int16 if dt == torch.bfloat16 else torch.int32
+        check(torch.equal(cpu.view(view), card.cpu().view(view)),
+              f"SDC: colliding flips ({dt}) differ between card and CPU")
+    print("  200 flips on 3 elements (colliding draws), f32 and bf16: card "
+          "== CPU bitwise", flush=True)
+
+    cfg = registry.get_config("suncatcher-lm-100m")
+    fns = registry.model_fns(cfg)
+    steps, seq, batch, burst = 8, 1024, 8, 2000
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=2,
+                       total_steps=steps)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0), dev)
+    state = init_train_state(torch.Generator(dev).manual_seed(0), cfg, fns,
+                             dev)
+    injector = SDCInjector(RadiationEnvironment(), n_chips=81 * 256,
+                           step_time_s=1.0, rate_multiplier=0.0)
+    flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        tr = FaultTolerantTrainer(make_train_step(cfg, fns, tcfg), state,
+                                  data, FTConfig(checkpoint_dirs=(d,),
+                                                 drain_every=1),
+                                  injector=injector)
+        t0 = time.perf_counter()
+        try:
+            hist = tr.run(steps, forced_sdc_at={3: burst})
+        finally:
+            tr.join_checkpoints()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    st = tr.stats
+    losses = [h["loss"] for h in hist]
+    print(f"  {cfg.name} per-step loop, forced burst of {burst} flips at step "
+          f"3: {len(hist)} steps run ({steps} kept) in {dt:.1f} s | stats "
+          f"{ {k: v for k, v in st.items() if v} } | B3 launches "
+          f"{flash_attention.launches}", flush=True)
+    print(f"    loss {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    check(st["sdc_injected"] == burst and st["sdc_detected"] >= 1
+          and st["rollbacks"] >= 1, f"SDC burst not detected: {st}")
+    check(tr.step == steps and all(np.isfinite(losses[-steps:])),
+          f"SDC: the run did not recover ({tr.step} steps)")
+    launches = flash_attention.launches
+    del tr, state
+    torch.cuda.empty_cache()
+
+    runs = (("2e3", True), ("1e5", False))
+    results = _launchers([("repro_torch.launch.train", "--steps", "6",
+                           "--sdc-rate-multiplier", mult)
+                          for mult, _ in runs])
+    for (mult, ok), (rc, out, err, dt) in zip(runs, results):
+        if ok:
+            check(rc == 0, f"--sdc-rate-multiplier {mult} exited {rc}:\n"
+                  f"{err[-3000:]}")
+            got = {k: _printed_count(rf"'{k}': ", out, f"--sdc-rate-"
+                                     f"multiplier {mult}: {k}")
+                   for k in ("sdc_injected", "sdc_detected", "rollbacks")}
+            check(got["sdc_injected"] > 0 and got["sdc_detected"] >= 1
+                  and got["rollbacks"] >= 1,
+                  f"--sdc-rate-multiplier {mult}: no injection recovered "
+                  f"from: {got}")
+            stats = re.search(r"ft stats (\{.*?\})", out)
+            print(f"  train launcher --sdc-rate-multiplier {mult}: exit 0 in "
+                  f"{dt:.1f} s | {stats.group(1) if stats else got}",
+                  flush=True)
+        else:
+            check(rc != 0 and "RuntimeError: persistent non-finite" in err,
+                  f"--sdc-rate-multiplier {mult}: exit {rc}, no persistent "
+                  f"non-finite error:\n{err[-2000:]}")
+            msg = [ln for ln in err.splitlines() if "RuntimeError" in ln]
+            print(f"  train launcher --sdc-rate-multiplier {mult}: exit {rc} "
+                  f"in {dt:.1f} s | {msg[-1].strip()}", flush=True)
+    return launches
+
+
+def _control_start(torch):
+    """Phase 20c's problem and initial draws (the reference test's:
+    3 x 3 lattice, 8 m of position noise), drawn on the CPU from seed 0,
+    the same in the main process and the CPU-side worker."""
+    from repro_torch.core.orbital import ClusterDesign, ControlProblem
+    from repro_torch.core.orbital.control import init_policy
+    prob = ControlProblem(design=ClusterDesign(n_side=3, spacing=100.0),
+                          u_max=2e-5, control_dt=60.0, substeps=4,
+                          dv_weight=1e3)
+    g = torch.Generator().manual_seed(0)
+    cpu = torch.device("cpu")
+    p0 = init_policy(g, device=cpu)
+    y0 = prob.design.initial_states(device=cpu)
+    noise = 8.0 * torch.randn(y0.shape, generator=g, dtype=y0.dtype)
+    noise[..., 3:] *= 1e-3
+    return prob, p0, y0 + noise
+
+
+def _liveness_j2():
+    """Phase 20b's liveness model: 8 pods on the J2 orbit."""
+    from repro_torch.core.isl import LivenessConfig
+    return LivenessConfig(n_pods=8, outer_wire_bytes=430_000, integrate=True)
+
+
+def slice8_cpu_side():
+    """Phase 20's CPU references, run in a worker process while the card
+    runs phase 20a: the J2 orbit (one orbit, dt 5 s), the integrate=True
+    liveness masks at 8 pods and the controller's 25 iterations, each
+    timed; plain numbers and numpy arrays out."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+
+    from repro_torch.core.isl import ConstellationLinkModel
+    from repro_torch.core.orbital import (ClusterDesign, simulate_cluster,
+                                          train_controller)
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    out = {}
+    t0 = time.perf_counter()
+    out["hill"] = simulate_cluster(ClusterDesign(), n_orbits=1.0,
+                                   dt=5.0, device=cpu)[1].numpy()
+    out["orbit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = ConstellationLinkModel(cfg=_liveness_j2(), device=cpu)
+    out["liveness_s"] = time.perf_counter() - t0
+    out["masks"], out["pod_bw"] = m.mask_series(256)[0], m._pod_bw
+    prob, p0, y0 = _control_start(torch)
+    t0 = time.perf_counter()
+    _, info = train_controller(prob, n_intervals=20, iters=CONTROL_ITERS,
+                               lr=3e-2, params=p0, y0=y0, device=cpu)
+    out["control_s"] = time.perf_counter() - t0
+    out["loss_history"] = info["loss_history"]
+    return out
+
+
+def orbit_phase(torch, cpu):
+    """Phase 20b: the J2 orbit in float64 on the card.  simulate_cluster
+    of the 81-satellite design, one orbit at dt 5 s, against the CPU port:
+    Hill positions within 1e-6 m and velocities within 1e-9 m/s (the same
+    elementwise IEEE operations in the same order on both); neighbour
+    distances 100-200 m (direct) as tests/test_orbital.py bounds them; the
+    energy-matched Keplerian cluster closes to < 5 mm after an orbit at dt
+    2 s; j2_drift_rate at kappa 1.0 and 0.999 over 6 orbits, the tuned
+    rate under half the base; ConstellationLinkModel(integrate=True) at 8
+    pods on the card: masks over 256 rounds equal the CPU port's.  `cpu`
+    is the future of `slice8_cpu_side`, awaited first, so the card side
+    is timed on a host the worker no longer contends; both kappas
+    integrate at once (`tune_axis_ratio`, each bitwise its own run)."""
+    import numpy as np
+
+    from repro_torch.core.isl import ConstellationLinkModel
+    from repro_torch.core.orbital import (ClusterDesign, neighbor_distances,
+                                          simulate_cluster, tune_axis_ratio)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ref = cpu.result()
+    print(f"  CPU-side worker finished ({time.perf_counter() - t0:.1f} s "
+          f"waited); the card side below runs alone", flush=True)
+    t0 = time.perf_counter()
+    _, hill, _ = simulate_cluster(ClusterDesign(), n_orbits=1.0, dt=5.0,
+                                  device=dev)
+    hill = hill.cpu()
+    t_card = time.perf_counter() - t0
+    hill_cpu, t_cpu = torch.from_numpy(ref["hill"]), ref["orbit_s"]
+    perr = (hill[..., :3] - hill_cpu[..., :3]).abs().max().item()
+    verr = (hill[..., 3:] - hill_cpu[..., 3:]).abs().max().item()
+    check(perr <= 1e-6 and verr <= 1e-9, f"J2 orbit card vs CPU: position "
+          f"{perr} m, velocity {verr} m/s")
+    direct, diag = neighbor_distances(hill)
+    lo, hi = direct.min().item(), direct.max().item()
+    check(90.0 < lo < 110.0 and 190.0 < hi < 215.0,
+          f"direct neighbour distances {lo:.2f}-{hi:.2f} m")
+    print(f"  simulate_cluster (81 sats, 1 orbit, dt 5 s, f64): card "
+          f"{t_card:.2f} s, CPU {t_cpu:.2f} s | card vs CPU max |d pos| "
+          f"{perr:.3e} m, |d vel| {verr:.3e} m/s | direct neighbours "
+          f"{lo:.2f}-{hi:.2f} m, diagonal {diag.min().item():.2f}-"
+          f"{diag.max().item():.2f} m", flush=True)
+
+    t0 = time.perf_counter()
+    _, kep, _ = simulate_cluster(ClusterDesign(energy_matched=True),
+                                 n_orbits=1.0, dt=2.0, j2=False, device=dev)
+    closure = (kep[-1, :, :3] - kep[0, :, :3]).norm(dim=-1).max().item()
+    check(closure < 5e-3, f"energy-matched Keplerian closure {closure} m")
+    print(f"  energy-matched Keplerian cluster, 1 orbit at dt 2 s: closes "
+          f"to {closure * 1e3:.3f} mm ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    _, rates = tune_axis_ratio(ClusterDesign(), kappas=(1.0, 0.999),
+                               n_orbits=6.0, device=dev)
+    base, tuned = rates[1.0], rates[0.999]
+    print(f"  j2_drift_rate (6 orbits, card, both kappas in one "
+          f"integration): kappa 1.0 {base:.4f}, kappa 0.999 {tuned:.4f} "
+          f"m/s/yr per km ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(tuned < 0.5 * base,
+          f"tuned drift {tuned} not under half the base {base}")
+
+    t0 = time.perf_counter()
+    model = ConstellationLinkModel(cfg=_liveness_j2(), device=dev)
+    t_live = time.perf_counter() - t0
+    masks = model.mask_series(256)[0]
+    check(np.array_equal(masks, ref["masks"]),
+          "integrate=True masks differ between the card and the CPU")
+    same_bw = model._pod_bw.tobytes() == ref["pod_bw"].tobytes()
+    print(f"  ConstellationLinkModel(integrate=True, 8 pods): card "
+          f"{t_live:.2f} s, CPU {ref['liveness_s']:.2f} s | masks over 256 "
+          f"rounds equal | bandwidth tables "
+          f"{'bitwise equal' if same_bw else 'differ'} | masked share "
+          f"{1 - masks.mean():.3f}", flush=True)
+
+
+def control_phase(torch, cpu):
+    """Phase 20c: the formation controller at the reference test's problem
+    (3 x 3 lattice, 20 intervals of 4 dopri5 substeps, 25 iterations of
+    Adam, float64) from one set of initial draws on the card and on the
+    CPU: loss histories within 1e-8 relative, the last loss under 0.6x
+    the first, and the trained policy's rms position error under 0.8x
+    free fall's, on the card.  `cpu` is the future of `slice8_cpu_side`,
+    which ran the CPU side from the same draws and finished before 20b's
+    card side began."""
+    from repro_torch.core.orbital import rollout, train_controller
+    dev = torch.device("cuda")
+    prob, p0, y0 = _control_start(torch)
+    iters = CONTROL_ITERS
+    t0 = time.perf_counter()
+    params, info = train_controller(
+        prob, n_intervals=20, iters=iters, lr=3e-2,
+        params={k: v.to(dev) for k, v in p0.items()}, y0=y0.to(dev),
+        device=dev)
+    t_card = time.perf_counter() - t0
+    ref = cpu.result()
+    h, hc, t_cpu = info["loss_history"], ref["loss_history"], ref["control_s"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(h, hc))
+    check(rel <= 1e-8, f"controller loss history card vs CPU: {rel}")
+    check(h[-1] < 0.6 * h[0], f"controller loss {h[0]} -> {h[-1]}")
+    zero = {k: torch.zeros_like(v) for k, v in params.items()}
+    with torch.no_grad():
+        _, off = rollout(zero, prob, y0.to(dev), 0.0, 20)
+        _, on = rollout(params, prob, y0.to(dev), 0.0, 20)
+    check(on["rms_pos_err"].item() < 0.8 * off["rms_pos_err"].item(),
+          "the trained controller does not beat free fall")
+    print(f"  train_controller (9 sats, 20 x 4 dopri5 substeps, {iters} "
+          f"iterations, f64): card {t_card:.1f} s ({t_card / iters:.3f} "
+          f"s/iteration), CPU {t_cpu:.1f} s | loss {h[0]:.3f} -> "
+          f"{h[-1]:.3f}, card vs CPU {rel:.2e} relative | rms "
+          f"{info['rms_pos_err']:.3f} m (free fall "
+          f"{off['rms_pos_err'].item():.3f} m), dv/sat "
+          f"{info['dv_per_sat']:.5f} m/s", flush=True)
+
+
+def slice8_paths(torch):
+    """Phases 20a-c; their CPU references run during 20a in one worker
+    process (`slice8_cpu_side`), which 20b awaits before its card side
+    and which stops with the phase.  Returns B3's launches (20a's demo-LM
+    training)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        cpu = pool.submit(slice8_cpu_side)
+        phase("phase 20a: the SDC injector (card vs CPU flips; demo LM at "
+              "full width under a forced burst; the launcher at 2e3 and "
+              "1e5)")
+        b3 = sdc_phase(torch)
+        check(b3 > 0, "B3 never launched under the SDC injector")
+        phase("phase 20b: the J2 orbit in float64 on the card")
+        orbit_phase(torch, cpu)
+        phase("phase 20c: the formation controller in float64 on the card")
+        control_phase(torch, cpu)
+    return b3
 
 
 def main(argv):
@@ -2954,10 +3417,11 @@ def main(argv):
     only_plane = argv == ["--phase", "11"]
     only_family = argv == ["--phase", "14"]
     only_branch = argv == ["--phase", "17"]
+    only_slice8 = argv == ["--phase", "20"]
     if argv and not (only_2c or only_new or only_plane or only_family
-                     or only_branch):
+                     or only_branch or only_slice8):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
-              "--phase 14 | --phase 17]", file=sys.stderr)
+              "--phase 14 | --phase 17 | --phase 20]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3031,6 +3495,11 @@ def main(argv):
         phase()
         print(json.dumps({"kernels": list(new_rows.values())}))
         print("phases 17-19 alone: no result line")
+        return 0
+    if only_slice8:
+        slice8_paths(torch)
+        phase()
+        print("phase 20 alone: no result line")
         return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
@@ -3106,6 +3575,9 @@ def main(argv):
     for n, count in branch_paths(torch).items():
         new_rows[n]["launches"] = count
     rows.extend(new_rows.values())
+    torch.cuda.empty_cache()
+
+    rows[2]["launches"] += slice8_paths(torch)
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")
 

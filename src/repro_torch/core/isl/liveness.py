@@ -26,11 +26,16 @@ id, so a rollback replay of round r regenerates bit-identical masks. That
 determinism is what lets the DiLoCo supervisor replay rounds after a
 rollback and verify the replay bit-exactly.
 
-The orbit is the analytic HCW lattice in float32, as the reference
-computes it: the k-nearest-neighbour graph breaks exact distance ties by
-the last bit of each position, so a float64 orbit would pick other
-neighbours (ROADMAP C5).  The J2 numerical orbit (`integrate=True`) is
-not ported (ROADMAP A6).
+The default orbit is the analytic HCW lattice in float32, as the
+reference computes it: the k-nearest-neighbour graph breaks exact
+distance ties by the last bit of each position, so a float64 orbit would
+pick other neighbours (ROADMAP C5).  The J2 numerical orbit
+(`integrate=True`, `simulate_cluster`) runs in float64 on the model's
+`device`: there J2 separates the lattice's equal distances by far more
+than a binary64 ulp, so the neighbours are set by the physics and equal
+the reference's at float64; in float32 (the reference's precision under
+its launcher) an ulp at 7e6 m is 0.5 m and rounding picks them (ROADMAP
+C9).
 """
 from __future__ import annotations
 
@@ -38,8 +43,9 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..orbital.cluster import ClusterDesign
+from ..orbital.cluster import ClusterDesign, simulate_cluster
 from ..orbital.hcw import hcw_state
 from ..radiation.seu import (HBM_UECC_DOSE_PER_EVENT_RAD,
                              SEFI_DOSE_PER_EVENT_RAD, RadiationEnvironment)
@@ -110,7 +116,7 @@ class LivenessConfig:
     # restart is minutes, not a full satellite reboot — at ~10k chips/pod
     # this sets the pod-level downtime fraction (rate * repair_time)
     repair_time_s: float = 120.0
-    integrate: bool = False               # True: J2 numerical orbit (not ported)
+    integrate: bool = False               # True: J2 numerical orbit (slower)
 
 
 class ConstellationLinkModel:
@@ -121,13 +127,16 @@ class ConstellationLinkModel:
     pod's bandwidth is the summed capacity of neighbor-graph links crossing
     its boundary (the links its outer-sync delta must traverse). With one
     pod there is no cross-pod hop and the full neighbor aggregate is used.
+    `device` is where the J2 orbit integrates (`cfg.integrate`), the card
+    unless the caller names the CPU; the rest is host numpy.
     """
 
     def __init__(self, design: ClusterDesign | None = None,
                  cfg: LivenessConfig | None = None,
                  env: RadiationEnvironment | None = None,
-                 network: ISLNetwork | None = None):
+                 network: ISLNetwork | None = None, device="cuda"):
         self.design = design or ClusterDesign()
+        self.device = device
         self.cfg = cfg or LivenessConfig()
         self.env = env or RadiationEnvironment()
         self.network = network or ISLNetwork()
@@ -169,10 +178,11 @@ class ConstellationLinkModel:
         """(S, N, 3) Hill positions at `samples_per_orbit` phases."""
         S = self.cfg.samples_per_orbit
         if self.cfg.integrate:
-            raise NotImplementedError(
-                "LivenessConfig.integrate=True needs the J2 numerical orbit "
-                "(simulate_cluster), which is not ported (ROADMAP A6); use "
-                "the analytic HCW orbit (integrate=False)")
+            _, hill, _ = simulate_cluster(self.design, n_orbits=1.0,
+                                          samples_per_orbit=S,
+                                          dtype=torch.float64,
+                                          device=self.device)
+            return hill[:S, :, :3].cpu().numpy()
         ts = np.linspace(0.0, self.period, S, endpoint=False)
         ab = self.design.alpha_beta()
         return np.stack([

@@ -1,5 +1,5 @@
 """Hill-Clohessy-Wiltshire (HCW) relative motion and the paper's lattice
-design, in numpy float32.
+design, in numpy float32 (and float64 for the J2 orbit).
 
 Hill frame convention (circular reference orbit, mean motion n):
   x : radial (+zenith),  y : along-track (+velocity),  z : cross-track
@@ -22,6 +22,10 @@ computes in float32 too, with the same operation order: scalar factors
 in float64 and then rounded, as jax rounds weak-typed Python floats.
 sin and cos of the float32 phase are taken in float64 and rounded once
 (correctly rounded; XLA's float32 sin/cos may differ by an ulp).
+
+`lattice_alpha_beta` and `hcw_state` also take dtype=np.float64: the J2
+orbit and the formation controller run in binary64, as the reference does
+under jax_enable_x64, where these are plain float64 expressions.
 """
 from __future__ import annotations
 
@@ -41,23 +45,29 @@ def _phase(rate: float, t) -> np.ndarray:
     return np.asarray(rate * np.asarray(t, np.float64)).astype(np.float32)
 
 
-def lattice_alpha_beta(n_side: int = 9, spacing: float = 100.0):
+def lattice_alpha_beta(n_side: int = 9, spacing: float = 100.0,
+                       dtype=np.float32):
     """Square (alpha, beta) lattice centered at the origin. Returns (N,2)."""
     half = (n_side - 1) / 2.0
-    idx = np.arange(n_side, dtype=np.float32) - f32(half)
-    a, b = np.meshgrid(idx * f32(spacing), idx * f32(spacing), indexing="ij")
+    idx = np.arange(n_side, dtype=dtype) - dtype(half)
+    a, b = np.meshgrid(idx * dtype(spacing), idx * dtype(spacing),
+                       indexing="ij")
     return np.stack([a.ravel(), b.ravel()], axis=-1)
 
 
-def hcw_state(alpha_beta, n: float, t, kappa: float = 1.0):
+def hcw_state(alpha_beta, n: float, t, kappa: float = 1.0,
+              dtype=np.float32):
     """Analytic Hill-frame state for the concentric zero-drift family.
 
-    alpha_beta: (..., 2). Returns (..., 6) = [x, y, z, vx, vy, vz], float32.
+    alpha_beta: (..., 2). Returns (..., 6) = [x, y, z, vx, vy, vz] in
+    dtype (float32 or float64).
 
     kappa != 1 selects the J2-modified bounded family (axis ratio
     2:kappa): in-plane frequency omega = n*kappa*sqrt(2/(1+kappa^2));
     kappa=1 recovers exact Keplerian HCW.
     """
+    if dtype == np.float64:
+        return _hcw_state64(np.asarray(alpha_beta, np.float64), n, t, kappa)
     alpha_beta = np.asarray(alpha_beta, np.float32)
     al, be = alpha_beta[..., 0], alpha_beta[..., 1]
     omega = n * kappa * (2.0 / (1.0 + kappa * kappa)) ** 0.5
@@ -66,6 +76,19 @@ def hcw_state(alpha_beta, n: float, t, kappa: float = 1.0):
     y = f32(2.0) * (al * c - be * s)
     vx = f32(kappa * omega) * (al * c - be * s)
     vy = f32(-2.0 * omega) * (al * s + be * c)
+    z = np.zeros_like(x)
+    return np.stack([x, y, z, vx, vy, z], axis=-1)
+
+
+def _hcw_state64(alpha_beta, n: float, t, kappa: float):
+    """hcw_state in float64, the reference's expressions in its order."""
+    al, be = alpha_beta[..., 0], alpha_beta[..., 1]
+    omega = n * kappa * (2.0 / (1.0 + kappa * kappa)) ** 0.5
+    s, c = np.sin(omega * t), np.cos(omega * t)
+    x = kappa * (al * s + be * c)
+    y = 2.0 * (al * c - be * s)
+    vx = kappa * omega * (al * c - be * s)
+    vy = -2.0 * omega * (al * s + be * c)
     z = np.zeros_like(x)
     return np.stack([x, y, z, vx, vy, z], axis=-1)
 

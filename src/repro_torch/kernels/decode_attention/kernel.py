@@ -12,6 +12,11 @@ CTA per (query head, row).  The wrapper allocates their f32 workspace
 with `torch.empty`, at the size the source's `decode_attention_workspace`
 gives; the number of splits comes from shapes only, never from kv_len, so
 nothing is read back from the card.
+
+Instances: dh 64, 128, 160 and 256.  A head dim below 64 (the reduced
+configs' 8, 12, 16 and 20) is zero-padded, q and the cache or page pool
+alike, to the 64 instance and run with its own softmax scale
+(`_head_dim.py`); paged == dense stays bitwise, as at 64.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from pathlib import Path
 import torch
 
 from .._build import Library, raise_on
+from .._head_dim import instance_head_dim, pad_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 160, 256)
@@ -90,6 +96,9 @@ def decode_attention_fwd(q, k_cache, v_cache, kv_len):
     if h % hkv or kv_len.shape != (b,):
         raise ValueError(f"bad heads ({h} vs {hkv}) or kv_len shape "
                          f"{tuple(kv_len.shape)}")
+    run_dh = instance_head_dim(dh, _HEAD_DIMS, "decode attention")
+    q, k_cache, v_cache = (pad_head_dim(t, run_dh)
+                           for t in (q, k_cache, v_cache))
     _check(q, k_cache, v_cache, kv_len)
     lib = LIBRARY.load()
     ws = _workspace(lib, q, m)
@@ -97,10 +106,10 @@ def decode_attention_fwd(q, k_cache, v_cache, kv_len):
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(), b, hkv, h // hkv,
-        m, dh, _DTYPES[q.dtype], dh ** -0.5,
+        m, run_dh, _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "decode_attention")
-    return out
+    return out if run_dh == dh else out[..., :dh].contiguous()
 
 
 def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):
@@ -120,6 +129,9 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):
                          f"{tuple(page_table.shape)}")
     if page_table.dtype != torch.int32:
         raise TypeError(f"page_table must be int32, got {page_table.dtype}")
+    run_dh = instance_head_dim(dh, _HEAD_DIMS, "decode attention")
+    q, k_pages, v_pages = (pad_head_dim(t, run_dh)
+                           for t in (q, k_pages, v_pages))
     _check(q, k_pages, v_pages, kv_len, extra=(("page_table", page_table),))
     lib = LIBRARY.load()
     ws = _workspace(lib, q, ps * page_table.shape[1])
@@ -127,8 +139,8 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         kv_len.data_ptr(), page_table.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, hkv, h // hkv, ps, page_table.shape[1], dh,
+        out.data_ptr(), b, hkv, h // hkv, ps, page_table.shape[1], run_dh,
         _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "paged_decode_attention")
-    return out
+    return out if run_dh == dh else out[..., :dh].contiguous()

@@ -11,6 +11,8 @@
 // modes (no padding copies), and query rows >= Sq are never written.
 // Strides are arguments, so the model's (B, S, H, dh) layout and the
 // head-major (B, H, S, dh) layout both go in without a transpose copy.
+// Instances: dh 64, 128 and 160, bf16 and f32; the wrapper zero-pads a
+// head dim below 64 to 64 and passes the true dh's scale.
 //
 // Bound.  At the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16,
 // causal) the work is 4 * dh FLOP per visible (query, key) pair, 12.9
@@ -28,8 +30,9 @@
 // issues TMA loads, an item's Q tile and then its K and V tiles of 128
 // keys into a ring of STAGES stages, with full and empty mbarriers.  Each
 // load is a 4-D tensor map over (dh, S, H, B) with the tensor's own
-// strides, in 64-column boxes with 128-byte swizzle; rows past Sq or Skv
-// arrive as zeros.  Warpgroups 1 and 2 are consumers (setmaxnreg up),
+// strides, in 64-column boxes with 128-byte swizzle (dh 160: 32-column
+// boxes with 64-byte swizzle, see TcLayout); rows past Sq or Skv arrive as
+// zeros.  Warpgroups 1 and 2 are consumers (setmaxnreg up),
 // each owning 64 of the item's query rows.  Per key tile a consumer
 //   1. computes S = Q K^T (64 x 128, f32) with wgmma m64n128k16 from
 //      shared memory, both operands K-major, into registers;
@@ -243,9 +246,7 @@ int launch_f32(const Params& p, int batch, int heads, cudaStream_t stream) {
 
 constexpr int BQ = 128;         // query rows per CTA: two consumers of 64
 constexpr int BK = 128;         // keys per tile
-constexpr int STAGES = 3;       // K/V ring depth
 constexpr int THREADS = 384;    // producer + two consumer warpgroups
-constexpr int BOX_BYTES = 128;  // one swizzled row: 64 bf16 columns
 
 struct TcArgs {
   void* o;
@@ -256,21 +257,38 @@ struct TcArgs {
 };
 
 // Shared memory: the Q tile (BQ rows), then STAGES K tiles and STAGES V
-// tiles (BK rows), each as dh / 64 swizzled boxes of (rows x 128 bytes),
-// 1024-byte aligned; then the mbarriers (q_full, q_empty, k_full[STAGES],
-// v_full[STAGES], empty[STAGES]).
-template <int DH_> struct TcLayout {
+// tiles (BK rows), each as DH / BOX_COLS swizzled boxes of (rows x
+// BOX_BYTES), 1024-byte aligned; then the mbarriers (q_full, q_empty,
+// k_full[STAGES], v_full[STAGES], empty[STAGES]).  dh 64 and 128 take
+// 64-column boxes of 128 bytes under the 128-byte swizzle and a ring of 3
+// stages (dh 128: 32 KB of Q + 3 x 64 KB of K and V).  dh 160 is no
+// multiple of 64: it takes five 32-column boxes of 64 bytes under the
+// 64-byte swizzle, so every box is whole and no column is padded, and a
+// ring of 2 stages (40 KB of Q + 2 x 80 KB; 3 stages would need 280 KB of
+// the 227 KB a block may have).
+template <int DH_, int BOX_COLS_, int STAGES_> struct TcLayout {
   static constexpr int DH = DH_;
+  static constexpr int BOX_COLS = BOX_COLS_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr uint32_t BOX_BYTES = 2 * BOX_COLS;  // one swizzled row
+  static constexpr uint32_t ATOM = 8 * BOX_BYTES;  // 8 rows: one swizzle atom
+  static constexpr uint64_t SWIZZLE = BOX_COLS == 64 ? 1 : 2;  // wgmma desc
   static constexpr uint32_t Q_BOX = BQ * BOX_BYTES;
   static constexpr uint32_t KV_BOX = BK * BOX_BYTES;
-  static constexpr uint32_t Q_BYTES = Q_BOX * (DH / 64);
-  static constexpr uint32_t KV_BYTES = KV_BOX * (DH / 64);
+  static constexpr uint32_t Q_BYTES = Q_BOX * (DH / BOX_COLS);
+  static constexpr uint32_t KV_BYTES = KV_BOX * (DH / BOX_COLS);
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t K = Q + Q_BYTES;
   static constexpr uint32_t V = K + STAGES * KV_BYTES;
   static constexpr uint32_t BAR = V + STAGES * KV_BYTES;
   static constexpr uint32_t BYTES = BAR + 8 * (2 + 3 * STAGES) + 1024;
+  static_assert(DH % BOX_COLS == 0 && (BOX_COLS == 64 || BOX_COLS == 32),
+                "boxes of 64 columns (128-byte swizzle) or 32 (64-byte)");
+  static_assert(BYTES <= 232448, "more shared memory than a block may have");
 };
+using Tc64 = TcLayout<64, 64, 3>;
+using Tc128 = TcLayout<128, 64, 3>;
+using Tc160 = TcLayout<160, 32, 2>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -322,12 +340,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// byte offset (MN-major: the stride between 64-column boxes), stride byte
-// offset 1024 (from one 8-row group to the next)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+// wgmma shared-memory descriptor of layout L's swizzle: start address,
+// leading byte offset (MN-major: the stride between boxes), stride byte
+// offset one swizzle atom (from one 8-row group to the next)
+template <class L>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(L::ATOM >> 4) << 32) | (L::SWIZZLE << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -384,9 +403,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N): B from
-// shared memory, MN-major (the transpose bit); scale-d, a predicate,
-// is always set
+// D (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N), N = dh
+// (64, 128 or 160): B from shared memory, MN-major (the transpose bit);
+// scale-d, a predicate, is always set
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -432,6 +451,38 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[80],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -493,24 +544,26 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
 }
 
 // S (64 x 128) = Q K^T over dh, committed and not waited for: Q's 64 rows
-// and the tile's 128 keys, both K-major in 64-column swizzled boxes
+// and the tile's 128 keys, both K-major in swizzled boxes of BOX_COLS
 template <class L>
 __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t q_tile,
                                              uint32_t k_tile) {
+  constexpr int STEPS = L::BOX_COLS / 16;  // k-steps of 16 columns per box
   fence_regs(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < L::DH / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;  // 16 columns into the box
-    wgmma_ss_n128(sc, sw128_desc(q_tile + (kk / 4) * L::Q_BOX + off, 16),
-                  sw128_desc(k_tile + (kk / 4) * L::KV_BOX + off, 16),
+    const uint32_t off = (kk % STEPS) * 32;  // 16 columns into the box
+    wgmma_ss_n128(sc,
+                  sw_desc<L>(q_tile + (kk / STEPS) * L::Q_BOX + off, 16),
+                  sw_desc<L>(k_tile + (kk / STEPS) * L::KV_BOX + off, 16),
                   kk > 0);
   }
   wgmma_commit();
 }
 
 // O (64 x dh) += P V over the tile's 128 keys, committed and not waited
-// for: P from registers, V MN-major (dh / 64 boxes, LBO = one box)
+// for: P from registers, V MN-major (dh / BOX_COLS boxes, LBO = one box)
 template <class L>
 __device__ __forceinline__ void issue_values(float (&o)[L::DH / 2],
                                              const uint32_t (&pk)[32],
@@ -521,7 +574,7 @@ __device__ __forceinline__ void issue_values(float (&o)[L::DH / 2],
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint32_t frag[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                               pk[4 * kk + 3]};
-    wgmma_rs(o, frag, sw128_desc(v_tile + kk * 16 * BOX_BYTES, L::KV_BOX));
+    wgmma_rs(o, frag, sw_desc<L>(v_tile + kk * 16 * L::BOX_BYTES, L::KV_BOX));
   }
   wgmma_commit();
 }
@@ -546,11 +599,11 @@ __device__ __forceinline__ void overlapped_tile(
     float (&o)[L::DH / 2], float (&m)[2], float (&l)[2],
     const uint32_t (&p)[32], uint32_t (&p_next)[32]) {
   const int g = c.g0 + it;
-  const int s = g % STAGES;
-  const int sp = (g - 1) % STAGES;
+  const int s = g % L::STAGES;
+  const int sp = (g - 1) % L::STAGES;
   float alpha[2];
-  mbar_wait(c.k_full + 8 * s, (g / STAGES) & 1);
-  mbar_wait(c.v_full + 8 * sp, ((g - 1) / STAGES) & 1);
+  mbar_wait(c.k_full + 8 * s, (g / L::STAGES) & 1);
+  mbar_wait(c.v_full + 8 * sp, ((g - 1) / L::STAGES) & 1);
   issue_scores<L>(sc, c.q_tile, c.base + L::K + s * L::KV_BYTES);
   issue_values<L>(o, p, c.base + L::V + sp * L::KV_BYTES);
   wgmma_wait<1>();
@@ -571,8 +624,8 @@ __device__ __forceinline__ void last_values(const Consumer& c,
                                             float (&o)[L::DH / 2],
                                             const uint32_t (&p)[32]) {
   const int g = c.g0 + c.n_tiles - 1;
-  const int s = g % STAGES;
-  mbar_wait(c.v_full + 8 * s, (g / STAGES) & 1);
+  const int s = g % L::STAGES;
+  mbar_wait(c.v_full + 8 * s, (g / L::STAGES) & 1);
   issue_values<L>(o, p, c.base + L::V + s * L::KV_BYTES);
   wgmma_wait<0>();
   fence_regs(o);
@@ -612,8 +665,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t q_full = base + L::BAR;
   const uint32_t q_empty = q_full + 8;
   const uint32_t k_full = q_empty + 8;  // + 8 * stage
-  const uint32_t v_full = k_full + 8 * STAGES;
-  const uint32_t empty = v_full + 8 * STAGES;
+  const uint32_t v_full = k_full + 8 * L::STAGES;
+  const uint32_t empty = v_full + 8 * L::STAGES;
   const int n_items = a.n_qt * a.heads * a.batch;
   // the CTA's j-th work item: rounds of gridDim.x items, every other round
   // in reverse, so heavy and light causal items even out across CTAs
@@ -625,7 +678,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, 256);  // every consumer thread arrives
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(empty + 8 * s, 256);
@@ -645,22 +698,22 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(q_empty, (j & 1) ^ 1);
         mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < DH / 64; ++c)
-          tma_load(base + L::Q + c * L::Q_BOX, &qmap, q_full, c * 64,
-                   item.q0, item.h, item.b);
+        for (int c = 0; c < DH / L::BOX_COLS; ++c)
+          tma_load(base + L::Q + c * L::Q_BOX, &qmap, q_full,
+                   c * L::BOX_COLS, item.q0, item.h, item.b);
         for (int it = 0; it < item.n_tiles; ++it, ++g) {
-          const int s = g % STAGES;
-          mbar_wait(empty + 8 * s, ((g / STAGES) & 1) ^ 1);
+          const int s = g % L::STAGES;
+          mbar_wait(empty + 8 * s, ((g / L::STAGES) & 1) ^ 1);
           mbar_expect_tx(k_full + 8 * s, L::KV_BYTES);
 #pragma unroll
-          for (int c = 0; c < DH / 64; ++c)
+          for (int c = 0; c < DH / L::BOX_COLS; ++c)
             tma_load(base + L::K + s * L::KV_BYTES + c * L::KV_BOX, &kmap,
-                     k_full + 8 * s, c * 64, it * BK, hk, item.b);
+                     k_full + 8 * s, c * L::BOX_COLS, it * BK, hk, item.b);
           mbar_expect_tx(v_full + 8 * s, L::KV_BYTES);
 #pragma unroll
-          for (int c = 0; c < DH / 64; ++c)
+          for (int c = 0; c < DH / L::BOX_COLS; ++c)
             tma_load(base + L::V + s * L::KV_BYTES + c * L::KV_BOX, &vmap,
-                     v_full + 8 * s, c * 64, it * BK, hk, item.b);
+                     v_full + 8 * s, c * L::BOX_COLS, it * BK, hk, item.b);
         }
       }
     }
@@ -676,7 +729,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     c.k_full = k_full;
     c.v_full = v_full;
     c.empty = empty;
-    c.q_tile = base + L::Q + 64 * cw * BOX_BYTES;
+    c.q_tile = base + L::Q + 64 * cw * L::BOX_BYTES;
     c.q_empty = q_empty;
     c.c0 = 2 * (lane % 4);
     c.g0 = 0;
@@ -694,9 +747,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
 
-      const int s = c.g0 % STAGES;
+      const int s = c.g0 % L::STAGES;
       mbar_wait(q_full, j & 1);
-      mbar_wait(k_full + 8 * s, (c.g0 / STAGES) & 1);
+      mbar_wait(k_full + 8 * s, (c.g0 / L::STAGES) & 1);
       issue_scores<L>(sc, c.q_tile, base + L::K + s * L::KV_BYTES);
       wgmma_wait<0>();
       fence_regs(sc);
@@ -764,23 +817,26 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 constexpr int ENCODE_FAILED = 10000;  // + the CUresult of the encoder
 
 // A bf16 (dh, S, H, B) tensor with element strides (1, ss, sh, sb) as
-// boxes of 64 columns x `rows` rows, 128-byte swizzle; out-of-bounds rows
-// read as zeros.  TMA needs the base 16-byte aligned and every stride a
-// multiple of 16 bytes (the wrapper checks both).
+// boxes of `cols` columns x `rows` rows, swizzled over the box's row (64
+// columns: 128 bytes; 32: 64 bytes); out-of-bounds rows read as zeros.
+// TMA needs the base 16-byte aligned and every stride a multiple of 16
+// bytes (the wrapper checks both).
 int encode(CUtensorMap* map, const void* ptr, int dh, int s, int heads,
-           int batch, int64_t ss, int64_t sh, int64_t sb, int rows) {
+           int batch, int64_t ss, int64_t sh, int64_t sb, int cols,
+           int rows) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = tensor_map_encoder();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)s,
                               (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
 }
@@ -793,7 +849,8 @@ int launch_tc(const void* const* ptrs, void* o, const int64_t* st,
   for (int i = 0; i < 3; ++i) {
     const int err = encode(&maps[i], ptrs[i], L::DH, i ? skv : sq,
                            i ? heads / group : heads, batch, st[3 * i + 2],
-                           st[3 * i + 1], st[3 * i], i ? BK : BQ);
+                           st[3 * i + 1], st[3 * i], L::BOX_COLS,
+                           i ? BK : BQ);
     if (err) return err;
   }
   TcArgs a;
@@ -845,11 +902,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     const void* ptrs[3] = {q, k, v};
     if (dh == 64)
-      return launch_tc<TcLayout<64>>(ptrs, o, strides, batch, heads,
-                                        group, sq, skv, causal, scale, s);
+      return launch_tc<Tc64>(ptrs, o, strides, batch, heads, group, sq, skv,
+                             causal, scale, s);
     if (dh == 128)
-      return launch_tc<TcLayout<128>>(ptrs, o, strides, batch, heads,
-                                         group, sq, skv, causal, scale, s);
+      return launch_tc<Tc128>(ptrs, o, strides, batch, heads, group, sq,
+                              skv, causal, scale, s);
+    if (dh == 160)
+      return launch_tc<Tc160>(ptrs, o, strides, batch, heads, group, sq,
+                              skv, causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -876,6 +936,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.scale = scale;
   if (dtype == 0 && dh == 64) return launch_f32<64>(p, batch, heads, s);
   if (dtype == 0 && dh == 128) return launch_f32<128>(p, batch, heads, s);
+  if (dtype == 0 && dh == 160) return launch_f32<160>(p, batch, heads, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,6 +7,10 @@ runs at import, so the CPU tests import this module freely.  A launch that
 CUDA refuses raises with its error code.  The bf16 kernel's TMA tensor
 maps are encoded on the host at each call from pointers, shapes and
 strides alone, so a call never synchronises.
+
+Instances: dh 64, 128 and 160.  A head dim below 64 (the reduced configs'
+8, 12, 16 and 20) is zero-padded to the 64 instance and run with its own
+softmax scale (`_head_dim.py`).
 """
 from __future__ import annotations
 
@@ -16,9 +20,10 @@ from pathlib import Path
 import torch
 
 from .._build import Library, raise_on
+from .._head_dim import instance_head_dim, pad_head_dim
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 160)
 
 
 def _declare(lib):
@@ -80,7 +85,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool):
     head dim contiguous (a head-major view of the (B, S, H, dh) model
     layout goes in as it is).  Causal means key position <= query
     position.  Returns a (B, Sq, H, dh)-contiguous tensor viewed as
-    (B, H, Sq, dh), in q's dtype."""
+    (B, H, Sq, dh), in q's dtype.  A head dim below 64 runs on the 64
+    instance, zero-padded, at its own scale dh**-0.5."""
     b, h, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if k.shape != (b, hkv, skv, dh) or v.shape != k.shape or h % hkv:
@@ -88,15 +94,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool):
                          f"v {tuple(v.shape)} do not fit")
     if sq == 0 or skv == 0:
         raise ValueError("flash attention needs Sq > 0 and Skv > 0")
+    run_dh = instance_head_dim(dh, _HEAD_DIMS, "flash attention")
+    q, k, v = (pad_head_dim(t, run_dh) for t in (q, k, v))
     _check(q, k, v)
     lib = LIBRARY.load()
-    out = torch.empty(b, sq, h, dh, dtype=q.dtype,
+    out = torch.empty(b, sq, h, run_dh, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
                                       for s in _strides(t)))
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, h, h // hkv, sq, skv, dh, _DTYPES[q.dtype], int(causal),
+        b, h, h // hkv, sq, skv, run_dh, _DTYPES[q.dtype], int(causal),
         dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(err, "flash_attention")
+    if run_dh != dh:
+        out = out[..., :dh].transpose(1, 2).contiguous().transpose(1, 2)
     return out

@@ -187,7 +187,8 @@ def main(argv=None):
         from repro_torch.core.isl import (ConstellationLinkModel,
                                           LivenessConfig)
         liveness = ConstellationLinkModel(cfg=LivenessConfig(
-            n_pods=dcfg.n_pods, outer_wire_bytes=outer_wire_bytes(params)))
+            n_pods=dcfg.n_pods, outer_wire_bytes=outer_wire_bytes(params)),
+            device=device)
 
     # the engine(s) serve the round-0 globals until the first publish,
     # from their own copy
@@ -206,7 +207,8 @@ def main(argv=None):
                                                   LivenessConfig)
                 serve_model = ConstellationLinkModel(cfg=LivenessConfig(
                     n_pods=args.replicas,
-                    outer_wire_bytes=outer_wire_bytes(params)))
+                    outer_wire_bytes=outer_wire_bytes(params)),
+                    device=device)
             mask_fn = liveness_mask_fn(serve_model)
         forced = (parse_outage_spec(args.force_outage_at)
                   if args.force_outage_at is not None else None)

@@ -146,7 +146,8 @@ def build_plane(builds, args):
         from repro_torch.core.isl import (ConstellationLinkModel,
                                           LivenessConfig)
         mask_fn = liveness_mask_fn(ConstellationLinkModel(
-            cfg=LivenessConfig(n_pods=len(engines))))
+            cfg=LivenessConfig(n_pods=len(engines)),
+            device=torch.device(args.device)))
     forced = (parse_outage_spec(args.force_outage_at)
               if args.force_outage_at is not None else None)
     grid = GridConfig(replicate=not args.full_drain,

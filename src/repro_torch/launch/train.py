@@ -12,6 +12,12 @@ DiLoCoSupervisor.
       --diloco-pods 2 --inner-steps 8 --compress int8 --constellation \
       --seq-len 1024 --batch 8
 
+  # SEE bit-flip injection at 2000x the orbital SDC rate (the per-step
+  # loop: the screens detect, roll back and replay; at 1e5 a persistent
+  # non-finite loss raises RuntimeError instead of livelocking)
+  PYTHONPATH=src python -m repro_torch.launch.train --full --steps 16 \
+      --seq-len 1024 --batch 8 --sdc-rate-multiplier 2e3
+
   # the codebook (musicgen-medium) and VLM (qwen2-vl-2b) archs train on
   # batches of their kind; minicpm-2b defaults to the WSD schedule
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
@@ -32,6 +38,7 @@ import time
 
 import torch
 
+from repro_torch.core.radiation import RadiationEnvironment, SDCInjector
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import registry
 from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
@@ -43,9 +50,8 @@ from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
                                outer_wire_bytes)
 from repro_torch.train.tree import tree_leaves
 
-NOT_PORTED = ("device meshes (--mesh, ROADMAP A3b) and the SDC injector "
-              "(--sdc-rate-multiplier, ROADMAP A6) of the JAX launcher are "
-              "not ported yet and not accepted")
+NOT_PORTED = ("device meshes (--mesh, ROADMAP A3b) of the JAX launcher "
+              "are not ported yet and not accepted")
 
 
 def build_parser():
@@ -66,6 +72,11 @@ def build_parser():
     ap.add_argument("--drain-every", type=int, default=8,
                     help="metrics-block drain cadence K (1 = per-step host "
                          "loop)")
+    ap.add_argument("--sdc-rate-multiplier", type=float, default=0.0,
+                    help="inject SEE bit flips into the params at this "
+                         "multiple of the orbital SDC rate for 81 x 256 "
+                         "chips at 1 s a step (0 = off); runs the per-step "
+                         "loop")
     ap.add_argument("--diloco-pods", type=int, default=0,
                     help="run DiLoCo with this many pods (0 = off)")
     ap.add_argument("--inner-steps", type=int, default=8,
@@ -119,7 +130,8 @@ def _run_diloco(args, cfg, fns, tcfg, data, device):
             n_pods=dcfg.n_pods, outer_wire_bytes=wire,
             round_time_s=args.round_time_s,
             round_deadline_s=args.round_deadline_s,
-            outage_rate_multiplier=args.outage_rate_multiplier))
+            outage_rate_multiplier=args.outage_rate_multiplier),
+            device=device)
 
     n_rounds = -(-args.steps // dcfg.inner_steps)
     forced = ([args.force_rollback_at]
@@ -196,15 +208,20 @@ def main(argv=None):
         return
     state = init_train_state(torch.Generator().manual_seed(0), cfg, fns,
                              device)
-    fused = (make_fused_steps(cfg, fns, tcfg) if args.drain_every > 1
-             else None)
+    injector = None
+    if args.sdc_rate_multiplier:
+        injector = SDCInjector(RadiationEnvironment(), n_chips=81 * 256,
+                               step_time_s=1.0,
+                               rate_multiplier=args.sdc_rate_multiplier)
+    fused = (make_fused_steps(cfg, fns, tcfg)
+             if args.drain_every > 1 and injector is None else None)
     launches0 = flash_attention.launches
     with tempfile.TemporaryDirectory() as d:
         trainer = FaultTolerantTrainer(
             make_train_step(cfg, fns, tcfg), state, data,
             FTConfig(checkpoint_dirs=(d,), checkpoint_every=20,
                      drain_every=args.drain_every),
-            fused_steps=fused)
+            injector=injector, fused_steps=fused)
         t0 = time.perf_counter()
         try:
             hist = (trainer.run_fused(args.steps) if fused is not None

@@ -97,6 +97,28 @@ def randint(key, n: int, minval: int, maxval: int):
     return off + minval
 
 
+def randint64(key, n: int, minval: int, maxval: int) -> list:
+    """int64 `jax.random.randint(key, (n,), minval, maxval)` (jax with
+    jax_enable_x64, where randint's default dtype is int64) for one key
+    (2,): a list of Python ints.  Each value takes two 64-bit draws, each
+    the two threefry output words of its counter joined (hi << 32 | lo),
+    reduced modulo the span with jax's uint64 wrap-around; the reduction
+    runs in Python integers on the host."""
+    span = maxval - minval
+    if not 0 < span < 2 ** 63:
+        raise ValueError(f"randint64 span {span} outside (0, 2**63)")
+    wrap = 2 ** 64
+    lo_ix = torch.arange(n, dtype=torch.int64, device=key.device)
+    words = []
+    for k in split(key):
+        o1, o2 = threefry2x32(k[0], k[1], torch.zeros_like(lo_ix), lo_ix)
+        words.append([(a << 32) | b for a, b in zip(o1.tolist(),
+                                                     o2.tolist())])
+    mult = (2 ** 32 % span) ** 2 % wrap % span
+    return [(hi % span * mult % wrap + lo % span) % wrap % span + minval
+            for hi, lo in zip(*words)]
+
+
 def categorical(key, logits):
     """`jax.random.categorical(key, logits)` over the last axis, batched:
     key (..., 2), logits (..., n) float32 -> (...) int64 (Gumbel-max)."""

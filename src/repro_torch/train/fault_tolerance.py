@@ -26,9 +26,9 @@ after every bit-deterministic replay.  After `max_rollbacks_per_step`
 consecutive rollbacks at the same step the spike thresholds widen by
 `widen_factor` per further detection; a persistent non-finite loss raises.
 
-The fault injector is any object with the reference `SDCInjector`'s
-`maybe_inject(params, forced_events=...) -> (params, n)`; the injector
-itself waits for a later slice (ROADMAP A6).
+The fault injector is any object with `SDCInjector`'s
+`maybe_inject(params, forced_events=...) -> (params, n)`
+(`repro_torch.core.radiation.injection`); it runs in the per-step loop.
 
 `DiLoCoSupervisor` runs DiLoCo rounds (train/diloco.py) with pod masks
 from the constellation, per-pod rollback on the device, whole-round

@@ -2,8 +2,10 @@
 B2), flash-attention (B3) and RG-LRU scan (B4) kernels against their
 plain versions at the full widths of the demo LM and recurrentgemma-2b
 (B1/B2 also at the decode widths of minicpm-2b, stablelm-12b, command-r-35b
-and qwen2.5-32b), and the engines on the card (the MoE and xLSTM families
-and the new transformer branches too).  Each
+and qwen2.5-32b; B3 at stablelm-12b's dh 160; all three at the reduced
+configs' head dims, zero-padded to 64), the engines on the card (the MoE
+and xLSTM families and the new transformer branches too), and the SDC
+injector's flips on the card against the CPU.  Each
 skips, with its reason, where there is no CUDA device; the file imports
 no JAX, so it also runs on a machine without it:
 
@@ -146,6 +148,8 @@ def test_engine_on_card_paged_equals_dense_through_the_kernels(cuda_device):
     (2, 12, 12, 256, 64),       # MHA
     (2, 12, 1, 256, 64),        # MQA
     (2, 8, 2, 200, 128),        # head_dim 128, ragged
+    (2, 8, 2, 300, 160),        # head_dim 160 (stablelm-12b), ragged
+    (2, 4, 2, 100, 16),         # head_dim 16, zero-padded to 64, ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -203,7 +207,7 @@ def test_flash_gradients_match_autograd_through_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
-    q = torch.randn(1, 64, 2, 32, device=cuda_device)
+    q = torch.randn(1, 64, 2, 96, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.float16)
@@ -215,6 +219,75 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda_device):
     q = flat[1:1 + 64 * 2 * 64].view(1, 64, 2, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_stablelm_training_shape(cuda_device):
+    """B3's dh 160 instance (five 32-column boxes under the 64-byte
+    swizzle, a two-stage ring, P.V at n160) at stablelm-12b's training
+    shape (B 8, H 32/8, S 1024, bf16, causal): within the bf16 limit of
+    the plain version, two calls bitwise equal, and the plain version
+    leaving out one key in 128 fails the limit."""
+    b, h, hkv, s, dh = 8, 32, 8, 1024, 160
+    g = torch.Generator(device="cpu").manual_seed(160)
+    q, k, v = (torch.randn(b, s, n, dh, generator=g).to(
+        cuda_device, torch.bfloat16) for n in (h, hkv, hkv))
+    out = flash_attention(q, k, v, causal=True)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    ref = attention_reference(qh, kh, vh, causal=True).transpose(1, 2)
+    share = _bf16_share(out, ref)
+    assert share <= 1, f"bf16 error is {share:.3f} of its limit"
+    assert torch.equal(out, flash_attention(q, k, v, causal=True))
+    kh, vh = (t.float().repeat_interleave(h // hkv, dim=1) for t in (kh, vh))
+    sc = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh) * dh ** -0.5
+    pos = torch.arange(s, device=cuda_device)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] % 128 != 127)
+    planted = torch.einsum("bhqk,bhkd->bhqd", sc.masked_fill(
+        ~keep, float("-inf")).softmax(-1), vh).bfloat16().transpose(1, 2)
+    assert _bf16_share(planted, ref) > 1, "the limit passes a planted fault"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [8, 12, 16, 20])
+def test_kernels_at_the_reduced_head_dims(cuda_device, dtype, dh):
+    """The reduced configs' head dims run on the 64 instances, zero-padded
+    by the wrappers at the true dh's scale: B1 and B3 within their limits
+    of the plain versions, each call counted as a launch, B2 == B1
+    bitwise over shuffled pages with a NaN trash page, outputs of the
+    true width."""
+    b, h, hkv, m, ps = 4, 4, 2, 128, 16
+    q, kc, vc = _decode_inputs(cuda_device, dtype, b, h, hkv, m, dh, dh)
+    lens = torch.tensor([0, 1, 77, 128], dtype=torch.int32,
+                        device=cuda_device)
+    before = (decode_attention.launches, paged_decode_attention.launches,
+              flash_attention.launches)
+    out = decode_attention(q, kc, vc, lens)
+    assert out.shape == (b, h, dh) and out.is_contiguous()
+    _assert_close_to_plain(out, decode_attention_reference(q, kc, vc, lens),
+                           dtype)
+    mp = m // ps
+    perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
+        dh)).to(cuda_device)
+    kp = torch.full((b * mp + 1, ps, hkv, dh), float("nan"), dtype=kc.dtype,
+                    device=cuda_device)
+    vp = kp.clone()
+    live = torch.arange(mp, device=cuda_device) < ((lens + ps - 1) // ps
+                                                   )[:, None]
+    ptab = torch.where(live, perm.reshape(b, mp), b * mp).to(torch.int32)
+    kp[ptab[live].long()] = kc.reshape(b, mp, ps, hkv, dh)[live]
+    vp[ptab[live].long()] = vc.reshape(b, mp, ps, hkv, dh)[live]
+    assert torch.equal(paged_decode_attention(q, kp, vp, ptab, lens), out)
+    g = torch.Generator(device="cpu").manual_seed(dh)
+    qs, ks, vs = (torch.randn(2, 200, n, dh, generator=g).to(
+        cuda_device, getattr(torch, dtype)) for n in (h, hkv, hkv))
+    fo = flash_attention(qs, ks, vs, causal=True)
+    assert fo.shape == qs.shape
+    ref = attention_reference(*(t.transpose(1, 2) for t in (qs, ks, vs)),
+                              causal=True).transpose(1, 2)
+    _assert_close_to_plain(fo, ref, dtype)
+    assert (decode_attention.launches, paged_decode_attention.launches,
+            flash_attention.launches) == tuple(n + 1 for n in before)
 
 
 def _jittered_flash_source(race):
@@ -233,7 +306,7 @@ __device__ __forceinline__ void jitter(uint32_t x) {
 }
 __device__ __forceinline__ uint32_t smem_u32(""")
     for a, seed in (("  float alpha[2];\n  mbar_wait(", "c.q_tile * 31u + g"),
-                    ("  const int s = g % STAGES;\n  mbar_wait(c.v_full",
+                    ("  const int s = g % L::STAGES;\n  mbar_wait(c.v_full",
                      "c.q_tile * 31u + g + 5u"),
                     ("      mbar_wait(q_full, j & 1);",
                      "c.q_tile * 31u + j * 101u"),
@@ -268,15 +341,17 @@ def test_flash_kernel_is_bitwise_stable_under_timing_perturbation(
     device as unsupported): with random sleeps in the producer and both
     consumers, the outputs stay bitwise equal to the unperturbed
     kernel's, over several items per CTA (768 items at the training
-    shape, 384 at S 700 dh 128), while a planted early release of a K/V
-    stage or of the Q tile changes them."""
+    shape, 384 at S 700 dh 128, 192 at S 700 dh 160 on its two-stage
+    ring), while a planted early release of a K/V stage or of the Q tile
+    changes them."""
     src = tmp_path / "csrc" / "flash_attention.cu"
     src.parent.mkdir()
     src.write_text(_jittered_flash_source(race))
     jittered = Library(src, fa_kernel._declare)
     changed = 0
     for b, h, hkv, s, dh, causal in ((8, 12, 4, 1024, 64, True),
-                                     (8, 8, 2, 700, 128, False)):
+                                     (8, 8, 2, 700, 128, False),
+                                     (8, 4, 2, 700, 160, True)):
         g = torch.Generator(device="cpu").manual_seed(s + dh)
         q, k, v = (torch.randn(b, h if n == "q" else hkv, s, dh, generator=g
                                ).to(cuda_device, torch.bfloat16)
@@ -287,7 +362,7 @@ def test_flash_kernel_is_bitwise_stable_under_timing_perturbation(
         for _ in range(3):
             got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
             changed += int((got != want).sum())
-    print(f"planted race {race}: {changed} outputs moved in 6 calls")
+    print(f"planted race {race}: {changed} outputs moved in 9 calls")
     if race is None:
         assert changed == 0, f"{changed} outputs moved under perturbation"
     else:
@@ -708,16 +783,22 @@ def test_moe_and_xlstm_engines_on_card_equal_the_cpu(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, None])
 @pytest.mark.parametrize("arch", ["minicpm-2b", "stablelm-12b",
                                   "command-r-35b", "qwen2.5-32b",
                                   "qwen2-vl-2b", "musicgen-medium"])
-def test_new_transformer_branches_on_card_equal_the_cpu(cuda_device, arch):
-    """Reduced widths at head_dim 64 (which B1 and B3 take), f32: the
-    training forward (B3) and a prefill + decode (B1) on the card within
-    1e-3 of the CPU; the token LMs' engine streams equal the CPU's."""
-    cfg = registry.get_reduced_config(arch, compute_dtype="float32",
-                                      head_dim=64)
-    if cfg.mrope_sections:
+def test_new_transformer_branches_on_card_equal_the_cpu(cuda_device, arch,
+                                                        head_dim):
+    """Reduced widths at head_dim 64 and at their own (None: 12, 16 or
+    20, which the kernels run zero-padded to 64), f32: the training
+    forward (B3) and a prefill + decode (B1) on the card within 1e-3 of
+    the CPU; the token LMs' engine streams equal the CPU's."""
+    if head_dim is None:
+        cfg = registry.get_reduced_config(arch, compute_dtype="float32")
+    else:
+        cfg = registry.get_reduced_config(arch, compute_dtype="float32",
+                                          head_dim=64)
+    if cfg.mrope_sections and head_dim:
         cfg = registry.get_reduced_config(arch, compute_dtype="float32",
                                           head_dim=64,
                                           mrope_sections=(16, 8, 8))
@@ -755,3 +836,34 @@ def test_new_transformer_branches_on_card_equal_the_cpu(cuda_device, arch):
                                temperature=3.0 if uid % 2 else 0.0))
         streams.append({r.uid: r.generated for r in eng.run()})
     assert streams[0] == streams[1] == streams[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "float64"])
+def test_sdc_flips_on_the_card_equal_the_cpu(cuda_device, dtype):
+    """The SDC injector's flips of one key land on the same bits on the
+    card as on the CPU: a leaf of a few elements with many colliding draws
+    and a tree of wide leaves, compared as bit patterns."""
+    from repro_torch.core.radiation.injection import (
+        _BITS_FOR, count_changed_elements, flip_bits, inject_tree)
+    from repro_torch.serving import prng
+    dt = getattr(torch, dtype)
+    view = _BITS_FOR[dt][0]
+    g = torch.Generator().manual_seed(3)
+    small = torch.randn(3, generator=g).to(dt)
+    cpu = flip_bits(prng.PRNGKey(4), small, 100)
+    card = flip_bits(prng.PRNGKey(4), small.to(cuda_device), 100)
+    assert torch.equal(cpu.view(view), card.cpu().view(view))
+    tree = {"w": torch.randn(300, 64, generator=g).to(dt),
+            "inner": {"b": torch.randn(17, generator=g).to(dt)}}
+    cpu = inject_tree(prng.PRNGKey(5), tree, 400)
+    card = inject_tree(prng.PRNGKey(5), {"w": tree["w"].to(cuda_device),
+                                         "inner": {"b": tree["inner"]["b"]
+                                                   .to(cuda_device)}}, 400)
+    for a, b, orig in ((cpu["w"], card["w"], tree["w"]),
+                       (cpu["inner"]["b"], card["inner"]["b"],
+                        tree["inner"]["b"])):
+        assert torch.equal(a.view(view), b.cpu().view(view))
+        assert count_changed_elements(a, orig) == count_changed_elements(
+            b, orig.to(cuda_device))

@@ -194,7 +194,8 @@ def test_kernel_launcher_rejects_what_it_cannot_take(bad, match):
     if bad == "dtype":
         q, k = q.half(), k.half()
     elif bad == "head_dim":
-        q, k = torch.zeros(2, 4, 32), torch.zeros(2, 32, 2, 32)
+        # no instance at 96; a head dim below 64 is padded, not refused
+        q, k = torch.zeros(2, 4, 96), torch.zeros(2, 32, 2, 96)
     with pytest.raises((TypeError, ValueError), match=match):
         kernel.decode_attention_fwd(q, k, k, lens)
 

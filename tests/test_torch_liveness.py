@@ -225,7 +225,11 @@ def test_outage_repair_window_and_series(model):
 
 
 def test_j2_orbit_is_refused_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A6"):
-        tisl.ConstellationLinkModel(cfg=tisl.LivenessConfig(integrate=True))
+    """integrate=True builds the model on the J2 orbit (its parity with
+    the reference: tests/test_torch_orbital.py); a bad pod count is
+    refused."""
+    m = tisl.ConstellationLinkModel(cfg=tisl.LivenessConfig(integrate=True),
+                                    device="cpu")
+    assert m._pod_bw.shape == (64, 2) and np.isfinite(m._sync_s).all()
     with pytest.raises(ValueError):
         tisl.ConstellationLinkModel(cfg=tisl.LivenessConfig(n_pods=0))

@@ -4,6 +4,7 @@ port's own loop and data invariants, mirroring tests/test_training.py's
 TestTrainLoop and TestData.  The launcher's CLI runs on the CPU when
 asked to and refuses the default card without one."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -345,10 +346,23 @@ def test_train_cli_default_device_refuses_without_a_card():
 
 
 def test_train_cli_refuses_unported_flags():
-    for flag in ("--mesh", "--sdc-rate-multiplier"):
-        proc = _train_cli("--device", "cpu", flag, "2")
-        assert proc.returncode != 0
-        assert f"unrecognized arguments: {flag}" in proc.stderr
+    """--mesh is still refused (ROADMAP A3b); --sdc-rate-multiplier is
+    ported: at 2e3 the per-step loop detects, rolls back and finishes, at
+    1e5 a persistent non-finite loss raises instead of livelocking, as the
+    reference launcher does."""
+    proc = _train_cli("--device", "cpu", "--mesh", "2")
+    assert proc.returncode != 0
+    assert "unrecognized arguments: --mesh" in proc.stderr
+    proc = _train_cli("--device", "cpu", "--steps", "3",
+                      "--sdc-rate-multiplier", "2e3")
+    assert proc.returncode == 0, proc.stderr
+    assert "[per-step host loop]" in proc.stdout
+    stats = re.search(r"'sdc_injected': (\d+)", proc.stdout)
+    assert stats and int(stats[1]) > 0
+    proc = _train_cli("--device", "cpu", "--steps", "3",
+                      "--sdc-rate-multiplier", "1e5")
+    assert proc.returncode != 0
+    assert "RuntimeError: persistent non-finite" in proc.stderr
 
 
 @pytest.mark.parametrize("args", [
