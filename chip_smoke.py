@@ -10,6 +10,8 @@
   python3 chip_smoke.py --phase 17   # phases 1, the new rows of 2 and 2b
                                      # and 17-19 only, no result line
   python3 chip_smoke.py --phase 20   # phases 1 and 20 only, no result line
+  python3 chip_smoke.py --phase 21   # phases 1, the new rows of 2b and 2c
+                                     # and 21-22 only, no result line
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -52,9 +54,10 @@ phase took.
    `flash_attention_mha`) and stablelm-12b's (H 32/8, dh 160:
    `flash_attention_dh160`, where the planted fault must fail too).
    2c. The RG-LRU scan kernel (B4) against its plain version, f32
-   bitwise: the serve prefill shape (16, 256, 2560), the long prefill's
-   (2, 2048, 2560), B = 1 (1, 2048, 2560) and (3, 1001, 2600) on the TMA
-   copy path; a ragged (3, 100, 70) and (2, 517, 2560) with its bases 4
+   bitwise: the serve prefill shape (16, 256, 2560), recurrentgemma-2b's
+   training shape (8, 1024, 2560), an xLSTM prefix sum's (8, 256, 4), the
+   long prefill's (2, 2048, 2560), B = 1 (1, 2048, 2560) and
+   (3, 1001, 2600) on the TMA copy path; a ragged (3, 100, 70) and (2, 517, 2560) with its bases 4
    bytes off 16-byte alignment on the cp.async path; bf16 within 0.1
    (tests/test_kernels.py::_tol x 5) at (1, 512, 256), (2, 2048, 2560)
    and an odd D (2, 300, 77), which the wrapper widens to f32; a == 0
@@ -70,6 +73,21 @@ phase took.
    SDPA) at the serve run's rings (B 16, kv_len <= 232) and on full rings
    (B 4, kv_len 2048), where a planted fault (the plain version leaving
    out one position in 64) must fail the bf16 limit.
+   2b and 2c, the new rows of slice 9: B3 at granite-moe-1b-a400m's
+   training shape (B 8, H 16/8, S 1024, dh 64: `flash_attention_h16`),
+   checked and timed as the other B3 rows; B4's backward kernel
+   (`rglru_scan_bwd`) against the plain reverse walk, f32 bit patterns
+   equal (da_0's -0.0 included) at the training shape (8, 1024, 2560),
+   at the forward's ragged and misaligned shapes on both copy paths and
+   at an xLSTM prefix sum's (8, 256, 4), bf16 within 0.1; a planted
+   fault (the plain version with a_517 dropped) must fail; through the
+   autograd wrapper one backward is one launch of this kernel and no
+   other kernel (the profiler's device activity, which must record
+   it); xLSTM's prefix sum as the mLSTM's chunked form calls it (a = 1
+   on a strided 256-step chunk at (8, 256, 4)), forward and gradient
+   bit patterns equal to autograd through the plain version; timed at the
+   training shape beside its bound (a, h, g read, dx, da written), the
+   plain version and torch.mul over flat tensors moving the same bytes.
 3. Serve: suncatcher-lm-100m at full width in bf16, random weights from a
    seed, through ServingEngine: 32 requests on 16 slots, max_len 512,
    decode_block 8, prompts of 4-200 tokens with shared heads; dense and
@@ -169,8 +187,9 @@ phase took.
    paged, and recurrentgemma reduced at d_model 256), f32, 2 + 2 pods, an
    outage schedule, on the card and on the CPU: tokens and every
    plane_stats() counter equal.
-14. Serve granite-moe-1b-a400m at full width (24 layers, d 1024, 16/8
-   heads, dh 64, 32 experts top-8, d_ff 512, vocab 49408; 1.335B params)
+14. Serve granite-moe-1b-a400m at its published widths, 12 of its 24
+   layers (all 24 until slice 9; d 1024, 16/8 heads, dh 64, 32 experts
+   top-8, d_ff 512, vocab 49408; 1.335B params at full depth)
    in bf16, random weights from seed 0 with the embedding scaled by 0.1,
    through ServingEngine: phase 3's workload (greedy and T 0.7
    alternating), dense and paged, decode_block 8 and 1.  Every request
@@ -183,8 +202,9 @@ phase took.
    torch.profiler (sort, gather and index kernels' shares), and the
    kernel device time of one decode call beside one layer's MoE FFN, its
    dispatch and its expert products (sums under torch.profiler).
-15. Serve xlstm-350m at full width (12 sLSTM/mLSTM pairs, d 1024, 4
-   heads, vocab 50304) in bf16 with f32 carries, random weights from seed
+15. Serve xlstm-350m at its published widths cut to 2 of its 12
+   sLSTM/mLSTM pairs (d 1024, 4 heads, vocab 50304; all 12 until slice 9)
+   in bf16 with f32 carries, random weights from seed
    0 with the embedding scaled by 0.1: phase 3's workload at
    decode_block 8 and 1, bitwise equal; a short run under
    torch.profiler; a finished and a never-used row keep their whole
@@ -201,7 +221,7 @@ phase took.
    their published widths, cut in depth only, in bf16 (random weights
    drawn on the card from seed 0, the embedding scaled by 0.1, divided
    by the config's embed_scale: minicpm-2b's 12):
-   minicpm-2b at its full 40 layers (MHA 36/36, mu-P scales), stablelm-12b
+   minicpm-2b at 20 of 40 layers (MHA 36/36, mu-P scales), stablelm-12b
    at 8 of 40 (LayerNorm, H 32/8, dh 160), command-r-35b at 4 of 40 (the
    parallel block, vocab 256000 tied, logit_scale 0.0625) and qwen2.5-32b
    at 6 of 64 (QKV bias, H 40/8); phase 3's workload (greedy and T 0.7
@@ -211,8 +231,8 @@ phase took.
    decode block under sync debug mode "error").  tok/s, host syncs per
    token and peak memory per run; minicpm's 16 requests x 16 tokens under
    torch.profiler.
-18. Train musicgen-medium (12 of 48 layers: 4 codebooks, sinusoidal
-   positions, GELU MLP, MHA 24/24), qwen2-vl-2b (8 of 28: M-RoPE over
+18. Train musicgen-medium (6 of 48 layers: 4 codebooks, sinusoidal
+   positions, GELU MLP, MHA 24/24), qwen2-vl-2b (4 of 28: M-RoPE over
    "vlm" batches' (3, B, S) positions, H 12/2, dh 128) and stablelm-12b
    (2 of 40: LayerNorm, H 32/8, dh 160, vocab 100352 untied) at their
    published widths, bf16 compute, f32 masters drawn on the card, seq
@@ -254,6 +274,28 @@ phase took.
    relative, the loss under 0.6x its start, rms error under 0.8x free
    fall's.  The CPU sides of (b) and (c) run in one worker process while
    the card works.  Each prints its seconds.
+21. Train granite-moe-1b-a400m (all 24 layers: 32 experts top-8, H
+   16/8), xlstm-350m (2 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
+   (5 of 26 layers: one remat'd (rec, rec, attn) group and the two tail
+   recurrent blocks, the loss in chunks of 256 positions) at their
+   published widths in phase 18's setting: bf16 compute, f32 masters
+   drawn on the card, seq 1024, batch 8, SyntheticLM, run_fused for 8
+   steps then run for 8 from the same state, under
+   torch.use_deterministic_algorithms(True).  Every loss finite; run ==
+   run_fused losses and final state bitwise; no host sync inside the
+   fused block; B3, B4 and B4's backward launched exactly the counts the
+   layer counts and remat give (`family_launches`).  tok/s and peak
+   memory per run.  Then the train launcher on the card, side by side:
+   the reference launcher's DiLoCo example for granite-moe (reduced,
+   `--diloco-pods 2 --inner-steps 8 --compress int8`) and 8 steps of
+   xlstm-350m and recurrentgemma-2b (reduced) exit 0 having launched B3
+   or B4 forward and backward.
+22. Reference: the three families' reduced configs (granite-moe at
+   head_dim 64, xLSTM's chunked form), f32, card against CPU: one
+   batch's loss within 1e-3, every gradient leaf within GRAD_TOL of its
+   losses within 1e-3; the micro recurrent DiLoCo round (recurrentgemma
+   and xlstm reduced, 2 pods x H 2) within 1e-3 of the CPU and on the
+   card bitwise equal to make_inner_steps + outer_step.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -266,7 +308,8 @@ dh-64 row phases 3, 9, 11 and 12; B2's phases 3 and 11; B3's phases 5,
 16-slot runs and phase 12; the long rows phase 6's long runs; the H 16
 rows phase 14; the `_mha`, `_dh160`, `_dh128` and `_h40` rows phase 17's
 minicpm-2b, stablelm-12b, command-r-35b and qwen2.5-32b runs; the new B3
-rows phase 18), errors, times and bounds;
+rows phase 18; `flash_attention_h16` and `rglru_scan_bwd` phase 21, whose
+B4 forwards add to the `rglru_scan` row), errors, times and bounds;
 B4's rows also name their copy path.
 """
 import gc
@@ -527,11 +570,13 @@ def flash_bound(b, h, hkv, sq, skv, dh, causal, itemsize):
 # B3's timed shapes: the demo LM's training shape (the main row), then
 # qwen2-vl-2b's (H 12/2, dh 128: a GQA group of 6), musicgen-medium's
 # (H 24/24, MHA) and stablelm-12b's (H 32/8, dh 160) at seq 1024, batch 8
-# (phase 18), each a row of its own
+# (phase 18), and granite-moe-1b-a400m's (H 16/8, phase 21), each a row of
+# its own
 FLASH_ROWS = (("flash_attention", (8, 12, 4, 1024, 64)),
               ("flash_attention_dh128", (8, 12, 2, 1024, 128)),
               ("flash_attention_mha", (8, 24, 24, 1024, 64)),
-              ("flash_attention_dh160", (8, 32, 8, 1024, 160)))
+              ("flash_attention_dh160", (8, 32, 8, 1024, 160)),
+              ("flash_attention_h16", (8, 16, 8, 1024, 64)))
 # the timed shapes whose bf16 causal run must catch a planted fault
 PLANTED = ((8, 12, 4, 1024, 64), (8, 32, 8, 1024, 160))
 
@@ -1029,12 +1074,16 @@ def rglru_kernel_phase(torch, timer):
         return a.to(dev, dt), torch.randn(b, s, d, generator=g).to(dev, dt)
 
     # (B, S, D, dtype, offset in elements of a view into a larger buffer):
-    # the serve and long prefill shapes, B = 1, S not a multiple of the
+    # the serve and long prefill shapes, recurrentgemma-2b's training
+    # shape, an xLSTM prefix sum's (one 256-step chunk of 4 heads at
+    # batch 8), B = 1, S not a multiple of the
     # ring's stage depth with D not a multiple of its channel tile, a
     # ragged D whose rows are not 16-byte multiples and a base 4 bytes in
     # (both on the cp.async path), bf16 long, and bf16 at an odd D
     # (widened to f32 for the cp.async path)
     for b, s, d, dtype, off in ((16, 256, 2560, "float32", 0),
+                                (8, 1024, 2560, "float32", 0),
+                                (8, 256, 4, "float32", 0),
                                 (3, 100, 70, "float32", 0),
                                 (2, 2048, 2560, "float32", 0),
                                 (1, 2048, 2560, "float32", 0),
@@ -1200,6 +1249,189 @@ def rglru_kernel_phase(torch, timer):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by,
                      "library_ms": sdpa_ms})
+    return rows
+
+
+def scan_bwd_bound(b, s, d):
+    """Least time for B4's backward: a, h and g read once and dx and da
+    written once (f32) at the HBM rate, or 3 FLOP per element at the f32
+    rate, the larger."""
+    t_bytes = 5 * b * s * d * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * b * s * d / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rglru_bwd_phase(torch, timer):
+    """B4's backward kernel against its plain version (the reverse walk of
+    `ref.rglru_scan_backward_reference`): f32 bitwise (bit patterns, so
+    da_0's signed zeros count) at the training shape (8, 1024, 2560) and
+    at the shapes B4's forward is checked at on both copy paths, bf16
+    within B4's bf16 limit 0.1; a planted fault (the plain version with
+    one position's a dropped) must fail the bitwise check; through the
+    autograd wrapper, one backward launches this kernel once and no other
+    kernel.  Timed at the training shape beside its bound, the plain
+    version and torch.mul over flat tensors that move the same bytes.
+    Returns its row of the kernels line."""
+    from repro_torch.kernels.rglru_scan import kernel as b4
+    from repro_torch.kernels.rglru_scan import (
+        rglru_scan, rglru_scan_backward_reference, rglru_scan_reference)
+    dev = torch.device("cuda")
+
+    def inputs(b, s, d, dt, seed, off=0):
+        """a, h (the f32 carry of a scan of x) and g; `off` puts each in a
+        view `off` elements into a larger buffer."""
+        g = torch.Generator().manual_seed(seed)
+        a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g)
+        x, go = (torch.randn(b, s, d, generator=g) for _ in range(2))
+        a, x, go = a.to(dev, dt), x.to(dev, dt), go.to(dev, dt)
+        h = rglru_scan(a.float(), x.float())
+        ts = [a, h, go]
+        if off:
+            ts = [torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+                  [off:].view_as(t).copy_(t) for t in ts]
+        return ts
+
+    worst = 0.0
+    for b, s, d, dtype, off in ((8, 1024, 2560, "float32", 0),
+                                (16, 256, 2560, "float32", 0),
+                                (3, 100, 70, "float32", 0),
+                                (1, 2048, 2560, "float32", 0),
+                                (3, 1001, 2600, "float32", 0),
+                                (2, 517, 2560, "float32", 1),
+                                (8, 256, 4, "float32", 0),
+                                (1, 512, 256, "bfloat16", 0),
+                                (2, 2048, 2560, "bfloat16", 0),
+                                (2, 300, 77, "bfloat16", 0)):
+        a, h, go = inputs(b, s, d, getattr(torch, dtype), b * s + d, off)
+        path = b4.copy_path(a.float(), h, go.float())
+        n0 = b4.rglru_scan_bwd.launches
+        got = b4.rglru_scan_bwd(a, h, go)
+        check(b4.rglru_scan_bwd.launches == n0 + 1,
+              "B4 backward: one call is not one launch")
+        want = rglru_scan_backward_reference(a, h, go)
+        torch.cuda.synchronize()
+        err = max((u.float() - w.float()).abs().max().item()
+                  for u, w in zip(got, want))
+        tag = f"B4 backward {b}x{s}x{d} {dtype} ({path})"
+        check(all(bool(torch.isfinite(u).all()) and u.dtype == w.dtype
+                  for u, w in zip(got, want)),
+              f"{tag}: non-finite or wrong dtype")
+        if dtype == "float32":
+            check(all(bits_equal(torch, u, w) for u, w in zip(got, want)),
+                  f"{tag}: not bitwise equal to the plain version (max abs "
+                  f"err {err})")
+        else:
+            check(err <= 0.1, f"{tag}: max abs err {err}")
+        if (b, s, d) == (8, 1024, 2560):
+            worst = err
+        neg = int(torch.signbit(got[0][:, 0]).sum())
+        print(f"  {tag}{f', bases +{off * 4} B' if off else ''}: max abs "
+              f"err {err:.3e} ({'bit patterns equal' if dtype == 'float32' else 'tol 0.1'}); "
+              f"da_0 = -0.0 in {neg} channels", flush=True)
+
+    # the planted fault: one position's a dropped from the plain version
+    a, h, go = inputs(8, 1024, 2560, torch.float32, 11)
+    got = b4.rglru_scan_bwd(a, h, go)
+    a_bad = a.clone()
+    a_bad[:, 517] = 0.0
+    bad = rglru_scan_backward_reference(a_bad, h, go)
+    p_err = max((u - w).abs().max().item() for u, w in zip(got, bad))
+    check(not all(bits_equal(torch, u, w) for u, w in zip(got, bad)),
+          "the bitwise check passes a planted fault (a_517 dropped)")
+    print(f"  planted fault (the plain version with a_517 dropped): max abs "
+          f"err {p_err:.3e}, caught", flush=True)
+
+    # the autograd wrapper: one forward launch, one backward launch, and
+    # the backward's device activity is this kernel alone
+    a, h, go = inputs(8, 1024, 2560, torch.float32, 12)
+    x = torch.randn(a.shape, generator=torch.Generator().manual_seed(13)
+                    ).to(dev)
+    a.requires_grad_()
+    x.requires_grad_()
+    f0, b0 = b4.rglru_scan_fwd.launches, b4.rglru_scan_bwd.launches
+    out = rglru_scan(a, x)
+    grads = torch.autograd.grad(out, (a, x), go, retain_graph=True)
+    check((b4.rglru_scan_fwd.launches - f0, b4.rglru_scan_bwd.launches - b0)
+          == (1, 1), "B4 autograd: not one forward and one backward launch")
+    want = torch.autograd.grad(rglru_scan_reference(a, x), (a, x), go)
+    check(all(bits_equal(torch, u, w) for u, w in zip(grads, want)),
+          "B4 autograd on the card: gradients differ from autograd through "
+          "the plain version")
+    names = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, (a, x), go, retain_graph=True)
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"
+                       and e.self_device_time_total > 0)
+        if names:
+            break
+    check(len(names) == 1 and "rglru_scan_bwd_kernel" in names[0],
+          f"B4 autograd backward: the profiler saw {names or 'no kernel'} "
+          f"in 3 tries, not rglru_scan_bwd_kernel alone")
+    print(f"  B4 autograd at 8x1024x2560 f32: one forward and one backward "
+          f"launch, gradients bitwise equal to autograd through the plain "
+          f"version; its device activity is rglru_scan_bwd_kernel alone",
+          flush=True)
+
+    # xLSTM's prefix sum as the mLSTM's chunked form makes it: a = 1 over
+    # one 256-step chunk (a strided view of the (B, N, C, H) log forget
+    # gates) at batch 8 and 4 heads, forward and backward against
+    # autograd through the plain version, bit patterns equal
+    logf = torch.nn.functional.logsigmoid(torch.randn(
+        8, 4, 256, 4, generator=torch.Generator().manual_seed(14)).to(dev))
+    fc = logf[:, 1].requires_grad_()
+    gl = torch.randn(8, 256, 4, generator=torch.Generator().manual_seed(15)
+                     ).to(dev)
+    f0, b0 = b4.rglru_scan_fwd.launches, b4.rglru_scan_bwd.launches
+    lam = rglru_scan(torch.ones_like(fc), fc)
+    (dfc,) = torch.autograd.grad(lam, fc, gl)
+    check((b4.rglru_scan_fwd.launches - f0, b4.rglru_scan_bwd.launches - b0)
+          == (1, 1), "B4 at xLSTM's 8x256x4: not one forward and one "
+          "backward launch")
+    ones = torch.ones_like(fc)
+    want_lam = rglru_scan_reference(ones, fc)
+    (want_dfc,) = torch.autograd.grad(want_lam, fc, gl)
+    check(bits_equal(torch, lam, want_lam)
+          and bits_equal(torch, dfc, want_dfc),
+          "B4 at xLSTM's 8x256x4 (a = 1, a strided chunk): not bitwise "
+          "equal to the plain version")
+    print("  B4 at xLSTM's prefix-sum shape 8x256x4 (a = 1, one chunk of a "
+          "strided view): forward and its gradient bit patterns equal to "
+          "autograd through the plain version, one launch each", flush=True)
+
+    # times at the training shape, L2 flushed
+    ms = timer.ms(lambda: b4.rglru_scan_bwd(a.detach(), h, go))
+    plain_ms = timer.ms(lambda: rglru_scan_backward_reference(
+        a.detach(), h, go), iters=3)
+    n = a.numel() * 5 // 3           # two inputs and an output: 5N floats
+    fa, fb, fo = (torch.empty(n, device=dev) for _ in range(3))
+    mul_ms = timer.ms(lambda: torch.mul(fa, fb, out=fo))
+    bms, by = scan_bwd_bound(8, 1024, 2560)
+    print(f"  rglru_scan_bwd @ B=8 S=1024 D=2560 f32 "
+          f"({b4.copy_path(a, h, go)}): {ms * 1e3:.2f} us | bound "
+          f"{bms * 1e3:.2f} us ({by}), {bms / ms:.3f} of it | torch.mul "
+          f"moving the same bytes {mul_ms * 1e3:.2f} us | plain "
+          f"{plain_ms * 1e3:.2f} us | library: none", flush=True)
+    return {"name": "rglru_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan/ops.py:28",
+            "path": b4.copy_path(a, h, go), "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def family_rows(torch, timer):
+    """Phase 2b's row at granite-moe's training widths and phase 2c's
+    backward row: {row name: row}."""
+    print("  B3 at granite-moe-1b-a400m's training widths (H 16/8, dh 64):",
+          flush=True)
+    rows = {r["name"]: r for r in flash_phase(
+        torch, timer, ("flash_attention_h16",), more=False)}
+    print("  B4's backward:", flush=True)
+    rows["rglru_scan_bwd"] = rglru_bwd_phase(torch, timer)
     return rows
 
 
@@ -2291,7 +2523,8 @@ def moe_serve_phase(torch):
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     from repro_torch.train.tree import tree_leaves
     dev = torch.device("cuda")
-    cfg = registry.get_config("granite-moe-1b-a400m")
+    cfg = registry.get_config("granite-moe-1b-a400m",
+                              n_layers=MOE_SERVE_LAYERS)
     fns = registry.model_fns(cfg)
     t0 = time.perf_counter()
     params = context_params(torch, fns, cfg, dev)
@@ -2434,9 +2667,20 @@ def moe_serve_phase(torch):
     return tuple(totals)
 
 
+# Depth cuts of earlier phases that make room for phases 21-22 under the
+# script's time limit (their times at full depth: PERF.md).  Phase 15
+# serves xlstm-350m at 2 of its 12 sLSTM/mLSTM pairs: its prefill runs
+# the decode cell per position, ~25 ms of host a cell at all 12 pairs, so
+# the phase took 101.5-146.3 s at full depth.  Phase 14 serves
+# granite-moe-1b-a400m at 12 of its 24 layers.
+XLSTM_SERVE_LAYERS = 4
+MOE_SERVE_LAYERS = 12
+
+
 def xlstm_serve_phase(torch):
-    """xlstm-350m at full width through ServingEngine and behind a
-    ConstellationRouter (phase 15)."""
+    """xlstm-350m at its published widths, XLSTM_SERVE_LAYERS of its 24
+    layers, through ServingEngine and behind a ConstellationRouter (phase
+    15)."""
     import numpy as np
 
     from repro_torch.models import registry
@@ -2445,7 +2689,7 @@ def xlstm_serve_phase(torch):
                                      parse_outage_spec)
     from repro_torch.train.tree import tree_leaves
     dev = torch.device("cuda")
-    cfg = registry.get_config("xlstm-350m")
+    cfg = registry.get_config("xlstm-350m", n_layers=XLSTM_SERVE_LAYERS)
     fns = registry.model_fns(cfg)
     t0 = time.perf_counter()
     params = context_params(torch, fns, cfg, dev)
@@ -2661,11 +2905,12 @@ def family_paths(torch):
     """Phases 14-16.  Returns (B1 launches, B2 launches) of phase 14."""
     gc.collect()             # earlier phases' engines sit in cycles
     torch.cuda.empty_cache()
-    phase("phase 14: serve granite-moe-1b-a400m (full width, bf16, H 16/8, "
-          "32 experts top-8)")
+    phase("phase 14: serve granite-moe-1b-a400m (published widths, 12 of "
+          "24 layers, bf16, H 16/8, 32 experts top-8)")
     launches = moe_serve_phase(torch)
     torch.cuda.empty_cache()
-    phase("phase 15: serve xlstm-350m (full width, bf16, f32 carries), "
+    phase("phase 15: serve xlstm-350m (published widths, 2 of 12 pairs, "
+          "bf16, f32 carries), "
           "engine and 3-pod plane")
     xlstm_serve_phase(torch)
     torch.cuda.empty_cache()
@@ -2677,7 +2922,8 @@ def family_paths(torch):
 
 
 # phase 17's configs: arch -> (layers kept, B1/B2 row suffix of phase 2)
-BRANCH_SERVE = {"minicpm-2b": (40, "_mha"), "stablelm-12b": (8, "_dh160"),
+# (minicpm-2b at 20 of its 40 layers since slice 9, for the time limit)
+BRANCH_SERVE = {"minicpm-2b": (20, "_mha"), "stablelm-12b": (8, "_dh160"),
                 "command-r-35b": (4, "_dh128"), "qwen2.5-32b": (6, "_h40")}
 # phase 2's rows at their decode widths: suffix -> (H, Hkv, dh)
 BRANCH_ROWS = {"_dh160": (32, 8, 160), "_dh128": (64, 8, 128),
@@ -2761,21 +3007,34 @@ def branch_serve_phase(torch, arch):
 # phase 18's configs: arch -> layers kept
 # stablelm-12b at 2 of 40 layers (1.58B params): f32 AdamW holds old and
 # new state at once (~30 bytes a parameter) beside (8, 1024, 100352) f32
-# logits, so 4 layers (2.14B) would not leave room on one 80 GB card
-BRANCH_TRAIN = {"qwen2-vl-2b": 8, "musicgen-medium": 12, "stablelm-12b": 2}
+# logits, so 4 layers (2.14B) would not leave room on one 80 GB card;
+# qwen2-vl-2b at 4 of 28 and musicgen-medium at 6 of 48 (8 and 12 until
+# slice 9: cut for the script's time limit)
+BRANCH_TRAIN = {"qwen2-vl-2b": 4, "musicgen-medium": 6, "stablelm-12b": 2}
 
 
 def branch_train_phase(torch, arch):
-    """Phase 18, one config: published widths, depth cut to BRANCH_TRAIN,
-    seq 1024, batch 8, the port's SyntheticLM of the arch's kind, random
-    f32 masters drawn on the card from seed 0, bf16 compute;
+    """Phase 18, one config: published widths, depth cut to BRANCH_TRAIN;
+    see `train_cut_phase`.  Returns B3's launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    cfg = registry.get_config(arch, n_layers=BRANCH_TRAIN[arch])
+    return train_cut_phase(torch, arch, cfg, {"B3": flash_attention},
+                           {"B3": 2 * cfg.n_layers * 8})["B3"]
+
+
+def train_cut_phase(torch, arch, cfg, kernels, want):
+    """Phases 18 and 21, one config `cfg` (published widths, cut in
+    depth): seq 1024, batch 8, the port's SyntheticLM of the arch's kind,
+    random f32 masters drawn on the card from seed 0, bf16 compute;
     FaultTolerantTrainer.run_fused for 8 steps (one drain) and run for 8
     from the same state (drawn anew from the seed for each run, so no
     third copy of the state sits beside a step's old and new), bitwise
-    equal.  Returns B3's launches."""
+    equal.  `kernels` maps a label to a kernel wrapper whose launches
+    each run must make exactly `want[label]` of.  Returns {label:
+    launches over both runs}."""
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import registry
     from repro_torch.train import (AdamWConfig, DataConfig,
                                    FaultTolerantTrainer, FTConfig,
@@ -2784,7 +3043,6 @@ def branch_train_phase(torch, arch):
     from repro_torch.train.tree import tree_map, tree_paths
     dev = torch.device("cuda")
     full = registry.get_config(arch)
-    cfg = registry.get_config(arch, n_layers=BRANCH_TRAIN[arch])
     fns = registry.model_fns(cfg)
     kind = registry.input_kind(arch)
     steps, k, seq, batch = 8, 8, 1024, 8
@@ -2793,8 +3051,10 @@ def branch_train_phase(torch, arch):
                        total_steps=steps)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=0,
-                                  n_codebooks=cfg.n_codebooks, kind=kind),
+                                  n_codebooks=getattr(cfg, "n_codebooks", 1),
+                                  kind=kind),
                        dev)
+
     def state0():
         return init_train_state(torch.Generator(dev).manual_seed(0), cfg,
                                 fns, dev)
@@ -2803,8 +3063,10 @@ def branch_train_phase(torch, arch):
     first = state0()
     torch.cuda.synchronize()
     shapes = {n: tuple(v.shape) for n, v in data.batch_at(0).items()}
+    heads = (f"H {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.hd}"
+             if hasattr(cfg, "n_kv_heads") else f"H {cfg.n_heads}")
     print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, d "
-          f"{cfg.d_model}, H {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.hd}: "
+          f"{cfg.d_model}, {heads}: "
           f"{cfg.param_count() / 1e9:.3f}B params (full depth "
           f"{full.param_count() / 1e9:.3f}B) drawn on the card: "
           f"{time.perf_counter() - t0:.1f} s | {kind} batches {shapes}",
@@ -2813,7 +3075,6 @@ def branch_train_phase(torch, arch):
     fused = make_fused_steps(cfg, fns, tcfg)
     step_fn(first, data.batch_at(0))     # warm-up: cuBLAS, allocator
     del first
-    want_launches = 2 * cfg.n_layers * steps
     runs = {}
     for mode in ("run_fused", "run"):
         # the trainer's step-0 snapshot is a host copy only (no
@@ -2824,18 +3085,20 @@ def branch_train_phase(torch, arch):
         torch.cuda.reset_peak_memory_stats()
         tr = FaultTolerantTrainer(step_fn, state0(), data, ft,
                                   fused_steps=fused)
-        flash_attention.launches = 0
+        for k_ in kernels.values():
+            k_.launches = 0
         t0 = time.perf_counter()
         hist = getattr(tr, mode)(steps)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = flash_attention.launches
+        launches = {n: k_.launches for n, k_ in kernels.items()}
         losses = [h["loss"] for h in hist]
         st = tr.stats
         print(f"  {arch} {mode}: {steps} steps x {seq * batch} tokens in "
               f"{dt:.3f} s = {steps * seq * batch / dt:.1f} tok/s | "
               f"{st['host_syncs'] / steps:.4f} host syncs/step "
-              f"({st['drains']} drains) | B3 launches {launches} | peak "
+              f"({st['drains']} drains) | launches "
+              f"{' '.join(f'{n} {c}' for n, c in launches.items())} | peak "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
               flush=True)
         print(f"    loss {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
@@ -2843,8 +3106,8 @@ def branch_train_phase(torch, arch):
               f"{arch} {mode}: a loss is not finite: {losses}")
         check(st["rollbacks"] == 0, f"{arch} {mode}: rollbacks on a clean "
               f"run")
-        check(launches == want_launches, f"{arch} {mode}: B3 launched "
-              f"{launches} times, want 2 x {cfg.n_layers} x {steps}")
+        check(launches == want, f"{arch} {mode}: launches {launches}, "
+              f"want {want}")
         # on the host: a third state beside the next run's old and new
         # would not fit beside stablelm-12b's step
         runs[mode] = (losses, tree_map(lambda x: x.cpu(), tr.state),
@@ -2864,7 +3127,7 @@ def branch_train_phase(torch, arch):
     print(f"  {arch}: run_fused == run, losses and final state bitwise; no "
           f"host sync inside the fused block (sync debug mode \"error\")",
           flush=True)
-    return runs["run_fused"][2] + runs["run"][2]
+    return {n: runs["run_fused"][2][n] + runs["run"][2][n] for n in kernels}
 
 
 def branch_reference(torch, head_dim):
@@ -3005,6 +3268,234 @@ def branch_paths(torch):
     branch_reference(torch, head_dim=None)
     launcher_defaults()
     return launches
+
+
+# phase 21's configs: arch -> (layers kept, config overrides).
+# granite-moe-1b-a400m at its full 24 layers (1.335B params: f32 AdamW
+# state, old and new, and remat activations peak near 42 GB); xlstm-350m at
+# 2 of 12 sLSTM/mLSTM pairs (the sLSTM is a Python loop over the 1024
+# positions: launch-bound, ~6 s a step at 2 pairs); recurrentgemma-2b at 5
+# of 26 layers, one (rec, rec, attn) group under remat and the two tail
+# recurrent blocks without, with the loss in chunks of 256 positions
+# ((8, 1024, 256000) f32 logits would be 8.4 GB)
+FAMILY_TRAIN = {"granite-moe-1b-a400m": (24, {}),
+                "xlstm-350m": (4, {}),
+                "recurrentgemma-2b": (5, {"loss_chunk": 256})}
+
+
+def family_launches(cfg, seq, steps):
+    """The launches `steps` train steps at sequence length `seq` must
+    make: {"B3": flash attention, "B4": the scan forward, "B4 bwd": its
+    backward}.  Remat runs a block's forward twice (the forward and the
+    recompute before its backward).  A transformer launches B3 once per
+    layer per forward; recurrentgemma B4 once per recurrent block (2 per
+    group, remat'd, and the tail blocks, not); xLSTM B4 once per mLSTM
+    layer per chunk of `mlstm_chunk` positions (its prefix sums)."""
+    from repro_torch.models.rglru import RGLRUConfig
+    from repro_torch.models.xlstm import XLSTMConfig
+    r = 2 if cfg.remat else 1
+    if isinstance(cfg, RGLRUConfig):
+        g, t = 2 * cfg.n_groups, cfg.n_tail_rec
+        return {"B3": 0, "B4": steps * (r * g + t), "B4 bwd": steps * (g + t)}
+    if isinstance(cfg, XLSTMConfig):
+        n = -(-seq // cfg.mlstm_chunk) if seq > cfg.mlstm_chunk else 1
+        return {"B3": 0, "B4": steps * r * cfg.n_pairs * n,
+                "B4 bwd": steps * cfg.n_pairs * n}
+    return {"B3": steps * r * cfg.n_layers, "B4": 0, "B4 bwd": 0}
+
+
+def family_launchers():
+    """Phase 21, last part: the train launcher on the card at its reduced
+    defaults for the three families, side by side: the reference
+    launcher's DiLoCo example for granite-moe-1b-a400m (`--diloco-pods 2
+    --inner-steps 8 --compress int8`) and 8 steps of xlstm-350m and
+    recurrentgemma-2b; each exits 0, granite launches B3 and the other two
+    B4 forward and backward."""
+    runs = ((("repro_torch.launch.train", "--arch", "granite-moe-1b-a400m",
+              "--diloco-pods", "2", "--inner-steps", "8", "--compress",
+              "int8"), (("B3", r"flash-attention kernel launches "),)),
+            (("repro_torch.launch.train", "--arch", "xlstm-350m", "--steps",
+              "8"), (("B4", r"scan kernel launches: forward "),
+                      ("B4 bwd", r"scan kernel launches: forward \d+ "
+                                 r"backward "))),
+            (("repro_torch.launch.train", "--arch", "recurrentgemma-2b",
+              "--steps", "8"), (("B4", r"scan kernel launches: forward "),
+                                 ("B4 bwd", r"scan kernel launches: "
+                                            r"forward \d+ backward "))))
+    results = _launchers([args for args, _ in runs])
+    for (args, counts), (rc, out, err, dt) in zip(runs, results):
+        cmd = " ".join(args)
+        check(rc == 0, f"{cmd} exited {rc}:\n{err[-3000:]}")
+        seen = {}
+        for label, pattern in counts:
+            seen[label] = _printed_count(pattern, out, cmd)
+            check(seen[label] > 0, f"{cmd}: {label} never launched")
+        print(f"  {cmd} (reduced config, cuda): exit 0 in {dt:.1f} s, "
+              f"launches {seen}", flush=True)
+        for ln in [ln for ln in out.splitlines() if ln.strip()][-3:]:
+            print(f"    {ln.strip()[:300]}", flush=True)
+
+
+# phase 22's limit on each gradient leaf, card against CPU, as a share of
+# the leaf's own largest |grad|: the worst leaves read 7.2e-07
+# (granite-moe), 1.8e-05 (xLSTM's mlstm/w_k) and 2.0e-06 (recurrentgemma)
+# on an H100, so 1e-4 is about 6x the worst reading
+GRAD_TOL = 1e-4
+
+
+def family_train_reference(torch):
+    """Phase 22: the three families' reduced configs (granite-moe at
+    head_dim 64; xLSTM with mlstm_chunk 16, so the chunked form runs as it
+    does at seq 1024), f32, on the card against the CPU: one batch's loss
+    within 1e-3, every gradient leaf within GRAD_TOL of the leaf's own
+    largest |grad|, 4 train steps' losses within 1e-3; then the
+    micro recurrent DiLoCo round (recurrentgemma and xLSTM reduced, 2 pods
+    x H 2, seq 8, batch 2: the reference's
+    test_recurrent_fused_diloco_round_bit_identical) on the card against
+    the CPU within 1e-3, and on the card bitwise equal to
+    make_inner_steps + outer_step."""
+    import numpy as np
+
+    from repro_torch.models import registry
+    from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
+                                   SyntheticLM, TrainConfig, diloco_init,
+                                   init_train_state, make_diloco_round,
+                                   make_inner_steps, make_train_step,
+                                   outer_step)
+    from repro_torch.train.tree import (tree_leaves, tree_map, tree_paths,
+                                        tree_unflatten)
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=2,
+                       total_steps=100)
+
+    def reduced(arch):
+        over = dict(compute_dtype="float32")
+        if arch == "granite-moe-1b-a400m":
+            over["head_dim"] = 64
+        if arch == "xlstm-350m":
+            over["mlstm_chunk"] = 16
+        cfg = registry.get_reduced_config(arch, **over)
+        return cfg, registry.model_fns(cfg)
+
+    for arch in FAMILY_TRAIN:
+        cfg, fns = reduced(arch)
+        first = init_train_state(torch.Generator().manual_seed(0), cfg, fns,
+                                 cpu)
+        grads, losses = {}, {}
+        for side, d in (("cpu", cpu), ("card", dev)):
+            state = tree_map(lambda t: t.to(d), first)
+            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=64, global_batch=4), d)
+            leaves = [t.detach().requires_grad_()
+                      for t in tree_leaves(state["params"])]
+            loss = fns.loss_fn(tree_unflatten(state["params"], leaves),
+                               data.batch_at(0), cfg)
+            grads[side] = (loss.item(), [g.cpu() for g in
+                                         torch.autograd.grad(loss, leaves)])
+            step = make_train_step(cfg, fns, tcfg)
+            ls = []
+            for i in range(4):
+                state, m = step(state, data.batch_at(i))
+                ls.append(m["loss"].item())
+            losses[side] = ls
+        lerr = abs(grads["card"][0] - grads["cpu"][0])
+        # each leaf's error relative to its own largest |grad| (floored at
+        # 1e-12 only so that a leaf of zeros divides)
+        gerr, worst = max(
+            (((gg - gc).abs().max() / gc.abs().max().clamp(min=1e-12)
+              ).item(), name)
+            for name, gc, gg in zip(tree_paths(first["params"]),
+                                    grads["cpu"][1], grads["card"][1]))
+        serr = max(abs(a - b) for a, b in zip(losses["cpu"],
+                                              losses["card"]))
+        check(lerr <= 1e-3 and gerr <= GRAD_TOL and serr <= 1e-3,
+              f"{cfg.name}: card vs CPU loss {lerr}, gradients {gerr} "
+              f"({worst}; tol {GRAD_TOL}), 4 steps' losses {serr} "
+              f"(tol 1e-3)")
+        print(f"  {cfg.name} f32: one batch's loss card vs CPU {lerr:.3e} "
+              f"(tol 1e-3), {len(grads['cpu'][1])} gradient leaves within "
+              f"{gerr:.3e} of each leaf's max |grad| (worst {worst}; tol "
+              f"{GRAD_TOL}); 4 train steps' losses within {serr:.3e} "
+              f"(tol 1e-3)", flush=True)
+
+    dcfg = DiLoCoConfig(n_pods=2, inner_steps=2)
+    for arch in ("recurrentgemma-2b", "xlstm-350m"):
+        cfg, fns = reduced(arch)
+        params = fns.init(torch.Generator().manual_seed(0), cfg, cpu)
+        got = {}
+        for side, d in (("cpu", cpu), ("card", dev)):
+            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=8, global_batch=2), d)
+            batches = data.batch_block(np.arange(4).reshape(2, 2))
+            p_d = tree_map(lambda t: t.to(d), params)
+            mask = torch.ones(2, device=d)
+            thr = torch.tensor([3.0, 10.0], device=d)
+            rnd = make_diloco_round(cfg, fns, tcfg, dcfg)
+            out, metrics = rnd(diloco_init(p_d, dcfg), batches, mask, thr)
+            got[side] = (tree_paths(out), metrics["loss"].cpu())
+            if side == "card":
+                inner = make_inner_steps(cfg, fns, tcfg, dcfg)
+                ref, _ = inner(diloco_init(p_d, dcfg), batches)
+                ref = tree_paths(outer_step(ref, dcfg, pod_mask=mask))
+                check(list(ref) == list(got["card"][0]) and all(
+                    bits_equal(torch, ref[k], got["card"][0][k])
+                    for k in ref),
+                      f"{cfg.name}: the fused round on the card differs "
+                      f"from make_inner_steps + outer_step")
+        (sc, lc), (sg, lg) = got["cpu"], got["card"]
+        worst = max((sg[k].cpu().double() - sc[k].double()).abs().max()
+                    .item() for k in sc if sc[k].is_floating_point())
+        lerr = (lg - lc).abs().max().item()
+        check(bool(torch.isfinite(lg).all()) and worst <= 1e-3
+              and lerr <= 1e-3, f"{cfg.name}: DiLoCo round card vs CPU "
+              f"state {worst}, losses {lerr} (tol 1e-3)")
+        print(f"  {cfg.name} f32 DiLoCo round (2 pods x H 2): card == "
+              f"make_inner_steps + outer_step bitwise; card vs CPU state "
+              f"within {worst:.3e}, losses {lerr:.3e} (tol 1e-3)", flush=True)
+
+
+def family_train_paths(torch):
+    """Phases 21-22.  Returns {kernel label: launches} over phase 21's
+    runs: "B3" (granite-moe), "B4" and "B4 bwd" (xlstm-350m,
+    recurrentgemma-2b)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import kernel as b4
+    from repro_torch.models import registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 21: train granite-moe-1b-a400m, xlstm-350m and "
+          "recurrentgemma-2b (published widths, cut in depth, bf16, seq "
+          "1024, batch 8)")
+    kernels = {"B3": flash_attention, "B4": b4.rglru_scan_fwd,
+               "B4 bwd": b4.rglru_scan_bwd}
+    total = dict.fromkeys(kernels, 0)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for arch, (layers, over) in FAMILY_TRAIN.items():
+            t0 = time.perf_counter()
+            cfg = registry.get_config(arch, n_layers=layers, **over)
+            got = train_cut_phase(torch, arch, cfg, kernels,
+                                  family_launches(cfg, 1024, 8))
+            for n, c in got.items():
+                total[n] += c
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    family_launchers()
+    phase("phase 22: the three families' reduced configs and the recurrent "
+          "DiLoCo round, card vs CPU")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        family_train_reference(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    return total
 
 
 CONTROL_ITERS = 25       # phase 20c's iterations (the reference test's)
@@ -3418,10 +3909,12 @@ def main(argv):
     only_family = argv == ["--phase", "14"]
     only_branch = argv == ["--phase", "17"]
     only_slice8 = argv == ["--phase", "20"]
+    only_family_train = argv == ["--phase", "21"]
     if argv and not (only_2c or only_new or only_plane or only_family
-                     or only_branch or only_slice8):
+                     or only_branch or only_slice8 or only_family_train):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
-              "--phase 14 | --phase 17 | --phase 20]", file=sys.stderr)
+              "--phase 14 | --phase 17 | --phase 20 | --phase 21]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3501,6 +3994,18 @@ def main(argv):
         phase()
         print("phase 20 alone: no result line")
         return 0
+    if only_family_train:
+        phase("phase 2b and 2c, new rows: B3 at granite-moe's training "
+              "widths, B4's backward")
+        fam_rows = family_rows(torch, timer)
+        fam = family_train_paths(torch)
+        fam_rows["flash_attention_h16"]["launches"] = fam["B3"]
+        fam_rows["rglru_scan_bwd"]["launches"] = fam["B4 bwd"]
+        phase()
+        print(json.dumps({"kernels": list(fam_rows.values())}))
+        print(f"phases 21-22 alone: B4 forward launches {fam['B4']}; no "
+              f"result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -3522,6 +4027,9 @@ def main(argv):
     phase("phase 2 and 2b, new rows: B1/B2 at the decode widths of phase "
           "17, B3 at the training widths of phase 18")
     new_rows = branch_rows(torch, timer)
+    phase("phase 2b and 2c, new rows: B3 at granite-moe's training widths, "
+          "B4's backward")
+    fam_rows = family_rows(torch, timer)
 
     phase("phase 3: serve suncatcher-lm-100m (full width, bf16)")
     totals = serve_phase(torch)
@@ -3578,6 +4086,13 @@ def main(argv):
     torch.cuda.empty_cache()
 
     rows[2]["launches"] += slice8_paths(torch)
+    torch.cuda.empty_cache()
+
+    fam = family_train_paths(torch)
+    fam_rows["flash_attention_h16"]["launches"] = fam["B3"]
+    fam_rows["rglru_scan_bwd"]["launches"] = fam["B4 bwd"]
+    rows[3]["launches"] += fam["B4"]         # B4's training forwards
+    rows.extend(fam_rows.values())
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")
 

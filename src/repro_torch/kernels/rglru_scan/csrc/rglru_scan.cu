@@ -50,6 +50,22 @@
 // card is bound by HBM, not by SMs: 512-byte rows measured faster than
 // 128-byte rows over 320 CTAs (PERF.md).  At (16, 256, 2560) it is 320
 // CTAs.  At B = 1 and D 2560 only 20 SMs stream (PERF.md, open questions).
+//
+// Backward (`rglru_scan_bwd_kernel`).  Replaces no Pallas kernel: the
+// reference's VJP (src/repro/kernels/rglru_scan/ops.py::_scan_bwd)
+// differentiates its associative-scan oracle in XLA.  It is the same
+// channel-parallel walk run from t = S-1 down to 0, f32 only:
+//   dh_{S-1} = g_{S-1},  dh_t = __fadd_rn(g_t, __fmul_rn(a_{t+1}, dh_{t+1}))
+//   dx_t = dh_t,         da_t = __fmul_rn(dh_t, h_{t-1}),  h_{-1} = 0
+// the plain reverse walk's roundings, so it equals
+// `ref.rglru_scan_backward_reference` bitwise.  The producer warp streams
+// boxes of a, h and g (unshifted) through the ring from the last box to the
+// first; the walker keeps a_{t+1} and dh_{t+1} in registers, so no load is
+// shifted by a position and no box boundary falls inside a shift: h_t,
+// read at step t, completes da_{t+1}, and da_0 = dh_0 * 0.0 (the sign of
+// dh_0 kept) is stored after the walk.  Bound: a, h, g read once and dx,
+// da written once, 5 * B * S * D * 4 bytes: 125.2 us at (8, 1024, 2560).
+// Three rings of NS stages: 96 KB of shared memory, two CTAs an SM.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -264,6 +280,128 @@ __global__ void __launch_bounds__(THREADS) rglru_scan_kernel(
   }
 }
 
+// ---- backward: a reverse walk over a, h and g (f32) ----
+constexpr int BWD_RING_BYTES = 3 * NS * ST * ROW;  // a's, h's, g's stages
+constexpr int BWD_SMEM = BWD_RING_BYTES + 16 * NS;
+
+// One step t of the reverse walk for one channel.  h_t closes da_{t+1};
+// dh_t folds g_t into a_{t+1} * dh_{t+1} (at t = S-1 it is g_t itself).
+__device__ __forceinline__ void bwd_step(float at, float ht, float gt,
+                                         int t, int seq, size_t dim,
+                                         float& dh, float& a_next,
+                                         float* da, float* dx, bool live) {
+  const bool last = t + 1 == seq;
+  if (live && !last) da[(size_t)(t + 1) * dim] = __fmul_rn(dh, ht);
+  dh = last ? gt : __fadd_rn(gt, __fmul_rn(a_next, dh));
+  if (live) dx[(size_t)t * dim] = dh;
+  a_next = at;
+}
+
+template <bool TMA>
+__global__ void __launch_bounds__(THREADS) rglru_scan_bwd_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap hmap,
+    const __grid_constant__ CUtensorMap gmap, const float* __restrict__ a,
+    const float* __restrict__ hs, const float* __restrict__ g,
+    float* __restrict__ da, float* __restrict__ dx, int seq, int dim,
+    int n_dt) {
+  using Stage = float[ST][32 * W];
+  constexpr int TC = ROW / (int)sizeof(float);
+  constexpr uint32_t STAGE_BYTES = ST * ROW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Stage* ring_a = reinterpret_cast<Stage*>(smem);
+  Stage* ring_h = ring_a + NS;
+  Stage* ring_g = ring_h + NS;
+  const uint32_t full = smem_u32(smem + BWD_RING_BYTES), empty = full + 8 * NS;
+
+  const int b = blockIdx.x / n_dt;
+  const int d0 = (blockIdx.x - b * n_dt) * TC;
+  const int n_chunks = (seq + ST - 1) / ST;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, TMA ? 1 : 32);  // the expect_tx, or 32 lanes
+      mbar_init(empty + 8 * s, 32 * W);       // every walker lane
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the k-th stage filled holds steps t0 = (n_chunks - 1 - k) * ST onward
+  if (warp == W) {
+    // ---- producer: keep the ring full, last box first ----
+    if constexpr (TMA) {
+      if (lane == 0) {
+        for (int k = 0; k < n_chunks; ++k) {
+          const int s = k % NS, t0 = (n_chunks - 1 - k) * ST;
+          mbar_wait(empty + 8 * s, ((k / NS) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, 3 * STAGE_BYTES);
+          tma_load(smem_u32(ring_a[s]), &amap, full + 8 * s, d0, t0, b);
+          tma_load(smem_u32(ring_h[s]), &hmap, full + 8 * s, d0, t0, b);
+          tma_load(smem_u32(ring_g[s]), &gmap, full + 8 * s, d0, t0, b);
+        }
+      }
+    } else {
+      const size_t row0 = (size_t)b * seq;
+      for (int k = 0; k < n_chunks; ++k) {
+        const int s = k % NS, t0 = (n_chunks - 1 - k) * ST;
+        mbar_wait(empty + 8 * s, ((k / NS) & 1) ^ 1);
+#pragma unroll 8
+        for (int u = 0; u < ST; ++u) {
+          const int t = t0 + u;
+#pragma unroll
+          for (int w = 0; w < W; ++w) {  // one channel a lane
+            const int j = 32 * w + lane, d = d0 + j;
+            const bool in = d < dim && t < seq;
+            const size_t off = in ? (row0 + t) * (size_t)dim + d : 0;
+            const uint32_t n = in ? 4u : 0u;
+            cp_async4(smem_u32(&ring_a[s][u][j]), a + off, n);
+            cp_async4(smem_u32(&ring_h[s][u][j]), hs + off, n);
+            cp_async4(smem_u32(&ring_g[s][u][j]), g + off, n);
+          }
+        }
+        cp_async_arrive(full + 8 * s);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    return;
+  }
+
+  // ---- walker: fold each stage from its last step to its first ----
+  const int j = 32 * warp + lane;  // the lane's channel in the tile
+  const int c = d0 + j;
+  const bool live = c < dim;
+  const size_t base = ((size_t)b * seq) * (size_t)dim + (live ? c : 0);
+  float* const dap = da + base;
+  float* const dxp = dx + base;
+  float dh = 0.f, a_next = 0.f;
+  for (int k = 0; k < n_chunks; ++k) {
+    const int s = k % NS, t0 = (n_chunks - 1 - k) * ST;
+    mbar_wait(full + 8 * s, (k / NS) & 1);
+    if (t0 + ST <= seq) {
+      float ra[ST], rh[ST], rg[ST];  // the whole stage into registers first
+#pragma unroll
+      for (int u = 0; u < ST; ++u) {
+        ra[u] = ring_a[s][u][j];
+        rh[u] = ring_h[s][u][j];
+        rg[u] = ring_g[s][u][j];
+      }
+      mbar_arrive(empty + 8 * s);
+#pragma unroll
+      for (int u = ST - 1; u >= 0; --u)
+        bwd_step(ra[u], rh[u], rg[u], t0 + u, seq, dim, dh, a_next, dap, dxp,
+                 live);
+    } else {  // the ragged last box, the first one walked
+      for (int u = seq - t0 - 1; u >= 0; --u)
+        bwd_step(ring_a[s][u][j], ring_h[s][u][j], ring_g[s][u][j], t0 + u,
+                 seq, dim, dh, a_next, dap, dxp, live);
+      mbar_arrive(empty + 8 * s);
+    }
+  }
+  if (live) *dap = __fmul_rn(dh, 0.f);  // da_0 = dh_0 * h_{-1}
+}
+
 // cuTensorMapEncodeTiled lives in the driver library; the runtime hands
 // out its address, so the build links nothing beyond the runtime
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -314,6 +452,19 @@ int launch_typed(const void* a, const void* x, void* out, int batch, int seq,
   const int n_dt = (dim + TC - 1) / TC;
   const long long blocks = (long long)batch * n_dt;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kern = rglru_scan_kernel<T, true>;
+  if (!tma) {
+    if constexpr (sizeof(T) == 4)  // cp.async: f32 only
+      kern = rglru_scan_kernel<T, false>;
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  // a runtime call first: it makes the device's primary context current
+  // on this thread (autograd's worker thread may have none yet), which
+  // cuTensorMapEncodeTiled needs
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[2] = {};
   if (tma) {
     // TMA's rule: 16-byte aligned bases and row strides
@@ -324,19 +475,37 @@ int launch_typed(const void* a, const void* x, void* out, int batch, int seq,
       if (err) return err;
     }
   }
-  auto kern = rglru_scan_kernel<T, true>;
-  if (!tma) {
-    if constexpr (sizeof(T) == 4)  // cp.async: f32 only
-      kern = rglru_scan_kernel<T, false>;
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)blocks, THREADS, SMEM, stream>>>(
       maps[0], maps[1], static_cast<const T*>(a), static_cast<const T*>(x),
       static_cast<T*>(out), seq, dim, n_dt);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd(const float* a, const float* h, const float* g, float* da,
+               float* dx, int batch, int seq, int dim, int tma,
+               cudaStream_t stream) {
+  constexpr int TC = ROW / (int)sizeof(float);
+  const int n_dt = (dim + TC - 1) / TC;
+  const long long blocks = (long long)batch * n_dt;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kern = tma ? rglru_scan_bwd_kernel<true> : rglru_scan_bwd_kernel<false>;
+  // the runtime call before the encoder, as in launch_typed: autograd
+  // launches this from its worker thread
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[3] = {};
+  if (tma) {
+    const float* src[3] = {a, h, g};
+    if ((dim * sizeof(float)) % 16) return (int)cudaErrorMisalignedAddress;
+    for (int i = 0; i < 3; ++i) {
+      if ((uintptr_t)src[i] % 16) return (int)cudaErrorMisalignedAddress;
+      const int err = encode<float>(&maps[i], src[i], batch, seq, dim);
+      if (err) return err;
+    }
+  }
+  kern<<<(unsigned)blocks, THREADS, BWD_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], a, h, g, da, dx, seq, dim, n_dt);
   return (int)cudaGetLastError();
 }
 
@@ -358,6 +527,20 @@ int rglru_scan_launch(const void* a, const void* x, void* out, int batch,
   if (dtype == 1)
     return launch_typed<__nv_bfloat16>(a, x, out, batch, seq, dim, tma, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward of the scan: a, h (the forward's f32 carry), g (the
+// output's gradient) in; da, dx out; all (B, S, D) contiguous float32.
+// tma as for rglru_scan_launch.  Returns a cudaError_t (0 = launched), or
+// 10000 + a CUresult if a tensor map could not be encoded.
+int rglru_scan_bwd_launch(const void* a, const void* h, const void* g,
+                          void* da, void* dx, int batch, int seq, int dim,
+                          int tma, void* stream) {
+  if (batch <= 0 || seq <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd(static_cast<const float*>(a), static_cast<const float*>(h),
+                    static_cast<const float*>(g), static_cast<float*>(da),
+                    static_cast<float*>(dx), batch, seq, dim, tma,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

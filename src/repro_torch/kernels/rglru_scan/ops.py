@@ -7,34 +7,47 @@ blocks, the port has no switch and no padding: the tensor's device
 decides, and the kernel takes any (B, S, D).
 `kernel.rglru_scan_fwd.launches` counts kernel launches.
 
-Backward: the reference's custom_vjp differentiates its associative-scan
-oracle; this one differentiates the plain sequential formula, recomputed
-from the saved a and x under `torch.enable_grad()`.  Both are the VJP of
-the same recurrence.  The kernel is forward-only.
+Backward: the VJP of the sequential recurrence, a reverse walk
+(`ref.rglru_scan_backward_reference` for CPU tensors, the CUDA kernel
+`kernel.rglru_scan_bwd` for CUDA tensors, counted in
+`rglru_scan_bwd.launches`) over the saved a and the forward's f32
+carry h.  The reference's custom_vjp differentiates its associative-scan
+oracle instead (`src/repro/kernels/rglru_scan/ops.py::_scan_bwd`); both
+are the VJP of the same recurrence.  Where x is not f32 and a gradient is
+wanted, the forward scans the exact f32 widening and rounds its output
+once, which is what the kernel's own bf16 store gives, so the saved carry
+is the unrounded one.
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernel
-from .ref import rglru_scan_reference
+from .ref import rglru_scan_backward_reference, rglru_scan_reference
+
+
+def _scan(a, x):
+    if x.device.type == "cpu":
+        return rglru_scan_reference(a, x)
+    return kernel.rglru_scan_fwd(a.contiguous(), x.contiguous())
 
 
 class _Scan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, x):
-        ctx.save_for_backward(a, x)
-        if x.device.type == "cpu":
-            return rglru_scan_reference(a, x)
-        return kernel.rglru_scan_fwd(a.contiguous(), x.contiguous())
+        if not any(ctx.needs_input_grad):
+            return _scan(a, x)
+        h = (_scan(a, x) if x.dtype == torch.float32
+             else _scan(a.float(), x.float()))
+        ctx.save_for_backward(a, h)
+        return h.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        a, x = ctx.saved_tensors
-        with torch.enable_grad():
-            ax = [t.detach().requires_grad_() for t in (a, x)]
-            out = rglru_scan_reference(*ax)
-            return torch.autograd.grad(out, ax, g)
+        a, h = ctx.saved_tensors
+        if g.device.type == "cpu":
+            return rglru_scan_backward_reference(a, h, g)
+        return kernel.rglru_scan_bwd(a.contiguous(), h, g.contiguous())
 
 
 def rglru_scan(a, x):

@@ -23,13 +23,22 @@ DiLoCoSupervisor.
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
       --full --steps 16 --seq-len 1024 --batch 8
 
+  # the MoE, xLSTM and RG-LRU families train the same way (here the
+  # reference launcher's DiLoCo example for granite-moe-1b-a400m, at its
+  # reduced config)
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite-moe-1b-a400m --diloco-pods 2 --inner-steps 8 \
+      --compress int8
+
 It runs on the CUDA card unless `--device cpu` is given; with no card and
 the default device it exits with an error rather than fall back.  Weights
 are random, from a seeded generator; data is the synthetic stream of
 `train/data.py`.  It prints the loss trajectory, the supervisor's stats,
 tokens/s, host syncs per step (host drains per round with DiLoCo), the
 ISL wire bytes of an outer sync, and how many times the flash-attention
-kernel was launched (0 on the CPU, where its plain version runs).
+kernel and the RG-LRU scan kernels (forward and backward: the RG-LRU and
+xLSTM families) were launched (0 on the CPU, where their plain versions
+run).
 """
 import argparse
 import os
@@ -40,6 +49,8 @@ import torch
 
 from repro_torch.core.radiation import RadiationEnvironment, SDCInjector
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
+                                                   rglru_scan_fwd)
 from repro_torch.models import registry
 from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
                                DiLoCoSupervisor, FaultTolerantTrainer,
@@ -49,6 +60,18 @@ from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
                                make_fused_steps, make_train_step,
                                outer_wire_bytes)
 from repro_torch.train.tree import tree_leaves
+
+def _launches():
+    """The kernels' launch counters, to difference around a run."""
+    return (flash_attention.launches, rglru_scan_fwd.launches,
+            rglru_scan_bwd.launches)
+
+
+def _launch_line(before) -> str:
+    b3, fwd, bwd = (n - n0 for n, n0 in zip(_launches(), before))
+    return (f"flash-attention kernel launches {b3} | RG-LRU scan kernel "
+            f"launches: forward {fwd} backward {bwd}")
+
 
 NOT_PORTED = ("device meshes (--mesh, ROADMAP A3b) of the JAX launcher "
               "are not ported yet and not accepted")
@@ -136,7 +159,7 @@ def _run_diloco(args, cfg, fns, tcfg, data, device):
     n_rounds = -(-args.steps // dcfg.inner_steps)
     forced = ([args.force_rollback_at]
               if args.force_rollback_at is not None else None)
-    launches0 = flash_attention.launches
+    launches0 = _launches()
     with tempfile.TemporaryDirectory() as d:
         # keep=1: a snapshot holds every pod's params, moments and EF
         ft = FTConfig(checkpoint_dirs=(os.path.join(d, "replica-a"),
@@ -168,8 +191,7 @@ def _run_diloco(args, cfg, fns, tcfg, data, device):
     print(f"  {tokens / dt:.0f} tok/s (rounds kept; replays and "
           f"checkpoints in the wall time) | {sup.stats['drains']} host "
           f"drains, one per round run ({sup.stats['drains'] - len(hist)} "
-          f"rolled back) | flash-attention kernel launches "
-          f"{flash_attention.launches - launches0}")
+          f"rolled back) | {_launch_line(launches0)}")
     if liveness is not None:
         masked = sup.stats["masked_pod_rounds"] / (n_rounds * dcfg.n_pods)
         print(f"  constellation: round_time {liveness.round_time_s:.0f}s, "
@@ -215,7 +237,7 @@ def main(argv=None):
                                rate_multiplier=args.sdc_rate_multiplier)
     fused = (make_fused_steps(cfg, fns, tcfg)
              if args.drain_every > 1 and injector is None else None)
-    launches0 = flash_attention.launches
+    launches0 = _launches()
     with tempfile.TemporaryDirectory() as d:
         trainer = FaultTolerantTrainer(
             make_train_step(cfg, fns, tcfg), state, data,
@@ -241,8 +263,7 @@ def main(argv=None):
           f"ft stats {trainer.stats}")
     print(f"  {len(hist) * args.batch * args.seq_len / dt:.0f} tok/s | "
           f"{trainer.stats['host_syncs'] / len(hist):.3f} host-syncs/step | "
-          f"flash-attention kernel launches "
-          f"{flash_attention.launches - launches0}")
+          f"{_launch_line(launches0)}")
 
 
 if __name__ == "__main__":

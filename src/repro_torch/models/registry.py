@@ -46,8 +46,10 @@ def _config_module(arch: str):
 def model_fns(cfg) -> SimpleNamespace:
     """Config dataclass -> the model module's interface: init / forward /
     loss_fn, the serving pair init_cache / decode_step, cast_params (the
-    one compute-dtype copy the engine serves from) and decode_spec
-    (models/decode_state.py), the per-slot state spec the engine uses."""
+    one compute-dtype copy the engine serves from), params_from_jax (the
+    reference's params, exported with `np.asarray`, as port tensors) and
+    decode_spec (models/decode_state.py), the per-slot state spec the
+    engine uses."""
     for klass, modname in _FAMILIES.items():
         if isinstance(cfg, klass):
             mod = importlib.import_module(modname)
@@ -61,6 +63,7 @@ def model_fns(cfg) -> SimpleNamespace:
                            loss_fn=mod.loss_fn, init_cache=mod.init_cache,
                            decode_step=mod.decode_step,
                            cast_params=mod.cast_params,
+                           params_from_jax=mod.params_from_jax,
                            decode_spec=decode_spec)
 
 

@@ -210,20 +210,6 @@ def params_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
     return params
 
 
-def train_state_from_jax(tree, cfg: TransformerConfig, device="cuda") -> dict:
-    """The reference's train state {params, opt: {m, v, step}, step},
-    exported leaf by leaf with `np.asarray`, as a port train state on
-    `device` (see `train/loop.py::init_train_state`)."""
-    def scalar(x):
-        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
-    opt = tree["opt"]
-    return {"params": params_from_jax(tree["params"], cfg, device),
-            "opt": {"m": params_from_jax(opt["m"], cfg, device),
-                    "v": params_from_jax(opt["v"], cfg, device),
-                    "step": scalar(opt["step"])},
-            "step": scalar(tree["step"])}
-
-
 def cast_params(params: dict, cfg: TransformerConfig) -> dict:
     """One compute-dtype copy of every weight the blocks, the final norm
     and the unembed read, plus "head" (the cast unembedding matrix, (d,

@@ -19,7 +19,8 @@ fresh tensors, as the reference does.
 Serving prefills by running the decode cell over the bucket
 (`prefill_cells`), so prefill and decode are one recurrence bit for bit.
 No kernel of its own: the family runs GEMMs, batched products and
-elementwise ops.
+elementwise ops, and the mLSTM's log-forget prefix sums go through the
+RG-LRU scan kernel B4 at a = 1 (`_prefix_sum`).
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.rglru_scan import rglru_scan
 
 from . import grouped
 from .layers import rms_norm
@@ -166,13 +169,24 @@ def _slstm_block(cfg: XLSTMConfig, x, lp, state=None):
 # --------------------------------------------------------------------------
 # mLSTM: parallel and chunkwise (whole sequence), recurrent (decode)
 # --------------------------------------------------------------------------
+def _prefix_sum(x):
+    """Running sum along axis 1 of an f32 (B, S, H) tensor, added in order
+    in f32: the RG-LRU scan at a = 1 (h_t = 1 * h_{t-1} + x_t; 1 * h is
+    exact), so its forward and backward are kernels on the card and the
+    card equals the CPU bitwise.  A float `torch.cumsum` has no
+    deterministic CUDA kernel (it raises under
+    `torch.use_deterministic_algorithms(True)`, the mode the trainer's
+    bitwise checks run in), and on the CPU it sums in double."""
+    return rglru_scan(torch.ones_like(x), x)
+
+
 def _mlstm_parallel(q, k, v, ifg):
     """q, k, v (B, S, H, dh); ifg (B, S, 2H) pre-activations.  Stabilised
     masked linear attention with exponential gates (xLSTM eq. 19-27)."""
     b, s, h, dh = q.shape
     i_pre = ifg[..., :h].float()                        # (B, S, H)
     logf = F.logsigmoid(ifg[..., h:].float())
-    cum = torch.cumsum(logf, dim=1)
+    cum = _prefix_sum(logf)
     # D_ij = exp(F_i - F_j + i_j) for j <= i, stabilised per row
     logd = cum[:, :, None, :] - cum[:, None, :, :] + i_pre[:, None, :, :]
     mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
@@ -218,7 +232,7 @@ def _mlstm_chunked(q, k, v, ifg, chunk: int = 256):
     outs = []
     for j in range(nchunk):
         qc, kc, vc, ic, fc = (t[:, j] for t in (qs, ks, vs, i_pre, f_pre))
-        lam = torch.cumsum(fc, dim=1)                   # (B, C, H)
+        lam = _prefix_sum(fc)                           # (B, C, H)
         g = ic - lam
         big = torch.maximum(m_st[:, None], torch.cummax(g, dim=1).values)
         logd = g[:, None, :, :] - big[:, :, None, :]    # (B, Cq, Ck, H)

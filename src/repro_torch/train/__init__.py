@@ -13,7 +13,7 @@ from .fault_tolerance import (DetectionPolicy, DiLoCoSupervisor,
                               FaultTolerantTrainer, FTConfig, screen_init,
                               screen_update)
 from .loop import (TrainConfig, init_train_state, make_eval_step,
-                   make_fused_steps, make_train_step)
+                   make_fused_steps, make_train_step, train_state_from_jax)
 from .optimizer import (AdamWConfig, adamw_update, clip_by_global_norm,
                         global_norm, init_opt_state)
 from .publish import ParamPublisher, PublishConfig

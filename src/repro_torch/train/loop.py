@@ -13,8 +13,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.models import registry
 from repro_torch.sync import no_host_sync
 
 from .fault_tolerance import screen_update
@@ -37,6 +39,22 @@ def init_train_state(gen: torch.Generator, cfg, fns, device="cuda") -> dict:
     params = fns.init(gen, cfg, device)
     return {"params": params, "opt": init_opt_state(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def train_state_from_jax(tree, cfg, device="cuda") -> dict:
+    """The reference's train state {params, opt: {m, v, step}, step} for
+    any family, exported leaf by leaf with `np.asarray`, as a port train
+    state on `device` (the layout `init_train_state` makes)."""
+    def params(t):
+        return registry.model_fns(cfg).params_from_jax(t, cfg, device)
+
+    def scalar(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+    opt = tree["opt"]
+    return {"params": params(tree["params"]),
+            "opt": {"m": params(opt["m"]), "v": params(opt["v"]),
+                    "step": scalar(opt["step"])},
+            "step": scalar(tree["step"])}
 
 
 def make_train_step(model_cfg, fns, tcfg: TrainConfig) -> Callable:

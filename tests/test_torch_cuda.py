@@ -1,11 +1,13 @@
 """Card-only tests of the PyTorch port: the CUDA decode-attention (B1,
-B2), flash-attention (B3) and RG-LRU scan (B4) kernels against their
-plain versions at the full widths of the demo LM and recurrentgemma-2b
+B2), flash-attention (B3) and RG-LRU scan (B4, forward and backward)
+kernels against their plain versions at the full widths of the demo LM
+and recurrentgemma-2b
 (B1/B2 also at the decode widths of minicpm-2b, stablelm-12b, command-r-35b
 and qwen2.5-32b; B3 at stablelm-12b's dh 160; all three at the reduced
 configs' head dims, zero-padded to 64), the engines on the card (the MoE
-and xLSTM families and the new transformer branches too), and the SDC
-injector's flips on the card against the CPU.  Each
+and xLSTM families and the new transformer branches too), the MoE,
+xLSTM and RG-LRU families' train steps under deterministic algorithms,
+and the SDC injector's flips on the card against the CPU.  Each
 skips, with its reason, where there is no CUDA device; the file imports
 no JAX, so it also runs on a machine without it:
 
@@ -27,9 +29,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels._build import Library  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
-    rglru_scan, rglru_scan_reference)
+    rglru_scan, rglru_scan_backward_reference, rglru_scan_reference)
 from repro_torch.kernels.rglru_scan import kernel as rglru_scan_kernel  # noqa: E402,E501
-from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd  # noqa: E402,E501
+from repro_torch.kernels.rglru_scan.kernel import (  # noqa: E402
+    rglru_scan_bwd, rglru_scan_fwd)
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serving import EngineConfig, Request, ServingEngine  # noqa: E402,E501
 from repro_torch.sync import no_host_sync  # noqa: E402
@@ -607,10 +610,11 @@ def test_rglru_scan_kernel_copy_paths(cuda_device, d, dtype, off, path):
 
 def _jittered_scan_source(race):
     """rglru_scan.cu with a warp-uniform pseudo-random sleep of 0-4 us
-    before every copy issue (both paths) and every wait of the walker;
-    `race` plants an early release: the walker hands each stage back to
-    the producer before it reads it."""
-    def sub(text, a, b, n=1):
+    before every copy issue (both paths) and every wait of the walker, in
+    the forward and the backward kernel alike (their loops share these
+    lines); `race` plants an early release: the walker hands each stage
+    back to the producer before it reads it."""
+    def sub(text, a, b, n=2):
         assert text.count(a) == n, a
         return text.replace(a, b)
     s = rglru_scan_kernel.LIBRARY.source.read_text()
@@ -619,17 +623,19 @@ __device__ __forceinline__ void jitter(uint32_t x) {
   x ^= x >> 16; x *= 0x7feb352du; x ^= x >> 15; x *= 0x846ca68bu;
   __nanosleep((x ^ (x >> 16)) & 4095u);
 }
-__device__ __forceinline__ uint32_t smem_u32(""")
+__device__ __forceinline__ uint32_t smem_u32(""", n=1)
     s = sub(s, "          mbar_expect_tx(full + 8 * s,",
             "          jitter(blockIdx.x * 7919u + k * 31u + 1u);\n"
             "          mbar_expect_tx(full + 8 * s,")
-    s = sub(s, "#pragma unroll 8\n",
-            "        jitter(blockIdx.x * 7919u + k * 31u + 2u);\n"
-            "#pragma unroll 8\n")
+    # the cp.async producers' wait for a free stage (the TMA producers'
+    # are indented deeper)
+    free = "\n        mbar_wait(empty + 8 * s, ((k / NS) & 1) ^ 1);\n"
+    s = sub(s, free,
+            free + "        jitter(blockIdx.x * 7919u + k * 31u + 2u);\n")
     wait = "    mbar_wait(full + 8 * s, (k / NS) & 1);\n"
     s = sub(s, wait, "    jitter(blockIdx.x * 7919u + k * 31u + 3u);\n" + wait)
     if race:
-        s = sub(s, "mbar_arrive(empty + 8 * s);", "", n=2)
+        s = sub(s, "mbar_arrive(empty + 8 * s);", "", n=4)
         s = sub(s, wait, wait + "    mbar_arrive(empty + 8 * s);\n"
                 "    jitter(blockIdx.x * 7919u + k * 31u + 4u);\n")
     return s
@@ -639,34 +645,143 @@ __device__ __forceinline__ uint32_t smem_u32(""")
 @pytest.mark.parametrize("race", [False, True])
 def test_rglru_scan_kernel_is_bitwise_stable_under_timing_perturbation(
         cuda_device, tmp_path, monkeypatch, race):
-    """The ring's synchronisation, checked by perturbing its timing
+    """The rings' synchronisation, checked by perturbing their timing
     (compute-sanitizer can refuse a device as unsupported): with random
     sleeps before the producer's copies and the walker's waits, three
-    calls at the long prefill shape (TMA), bf16 at ragged S and D (TMA)
-    and a ragged f32 layout (cp.async) stay bitwise equal to the
-    unperturbed kernel's, while a planted early release of each stage
-    changes them."""
+    calls of the forward and of the backward at the long prefill shape
+    (TMA), bf16 at ragged S and D (TMA; the backward widens it) and a
+    ragged f32 layout (cp.async) stay bitwise equal to the unperturbed
+    kernels', while a planted early release of each stage changes
+    both."""
     src = tmp_path / "csrc" / "rglru_scan.cu"
     src.parent.mkdir()
     src.write_text(_jittered_scan_source(race))
     jittered = Library(src, rglru_scan_kernel._declare)
-    changed = 0
+    changed = {"forward": 0, "backward": 0}
     for b, s, d, dtype in ((4, 2048, 2560, "float32"),
                            (3, 1001, 2600, "bfloat16"),
                            (3, 1001, 70, "float32")):
         a, x = _scan_inputs(cuda_device, b, s, d, dtype, s + d)
+        h, g = rglru_scan_fwd(a.float(), x.float()), x.flip(1).contiguous()
         monkeypatch.setattr(rglru_scan_kernel, "LIBRARY", _SCAN_LIBRARY)
-        want = rglru_scan_fwd(a, x)
+        want = rglru_scan_fwd(a, x), rglru_scan_bwd(a, h, g)
         monkeypatch.setattr(rglru_scan_kernel, "LIBRARY", jittered)
         for _ in range(3):
-            got = rglru_scan_fwd(a, x)
-            changed += int((got != want).sum())
-    print(f"planted early release {race}: {changed} outputs moved in 9 "
-          f"calls")
-    if race:
-        assert changed > 0, "the planted early release went unseen"
-    else:
-        assert changed == 0, f"{changed} outputs moved under perturbation"
+            got = rglru_scan_fwd(a, x), rglru_scan_bwd(a, h, g)
+            changed["forward"] += int((got[0] != want[0]).sum())
+            changed["backward"] += sum(int((u != w).sum())
+                                       for u, w in zip(got[1], want[1]))
+    print(f"planted early release {race}: outputs moved in 9 calls "
+          f"{changed}")
+    for kind, n in changed.items():
+        if race:
+            assert n > 0, f"the planted early release went unseen ({kind})"
+        else:
+            assert n == 0, f"{n} {kind} outputs moved under perturbation"
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,dtype,off", [
+    (8, 1024, 2560, "float32", 0),    # recurrentgemma's training shape
+    (3, 100, 70, "float32", 0),       # ragged: cp.async
+    (2, 517, 2560, "float32", 1),     # bases 4 bytes off: cp.async
+    (3, 1001, 2600, "float32", 0),    # S, D off the stage and tile sizes
+    (2, 16, 128, "float32", 0),       # one whole stage
+    (2, 1, 128, "float32", 0),        # S = 1: dh = g, da = g * 0.0
+    (8, 1024, 4, "float32", 0),       # xLSTM's prefix sums (H 4)
+    (1, 512, 256, "bfloat16", 0),
+    (2, 300, 77, "bfloat16", 0),
+])
+def test_rglru_scan_bwd_kernel_matches_plain(cuda_device, b, s, d, dtype,
+                                             off):
+    """B4's backward against the plain reverse walk, bit patterns equal
+    (da_0's -0.0 included) on both copy paths; a bf16 a and g widen
+    exactly and the gradients round once, as the plain version rounds
+    them, so bf16 is bitwise too.  One call is one launch."""
+    a, x = _scan_inputs(cuda_device, b, s, d, dtype, b * s + d)
+    g = torch.randn(b, s, d, generator=torch.Generator().manual_seed(s)
+                    ).to(cuda_device, a.dtype)
+    h = rglru_scan_fwd(a.float(), x.float())
+    if off:
+        a, h, g = (torch.empty(t.numel() + off, dtype=t.dtype,
+                               device=cuda_device)[off:].view_as(t).copy_(t)
+                   for t in (a, h, g))
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(a, h, g)
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_scan_backward_reference(a, h, g)
+    torch.cuda.synchronize()
+    for u, w in zip(got, want):
+        assert u.dtype == w.dtype
+        assert torch.equal(_bits(u), _bits(w))
+
+
+@pytest.mark.cuda
+def test_rglru_scan_backward_is_one_launch_per_call(cuda_device):
+    """Through the autograd wrapper, each backward launches B4's backward
+    kernel once (no Python loop over S), each forward the forward
+    kernel once, and the gradients equal autograd through the plain
+    formula bitwise; a bf16 x saves its f32 carry."""
+    for dtype in ("float32", "bfloat16"):
+        a, x = _scan_inputs(cuda_device, 2, 700, 300, dtype, 5)
+        a.requires_grad_()
+        x.requires_grad_()
+        g = torch.randn(a.shape, generator=torch.Generator().manual_seed(6)
+                        ).to(cuda_device, a.dtype)
+        for _ in range(3):
+            f0, b0 = rglru_scan_fwd.launches, rglru_scan_bwd.launches
+            got = torch.autograd.grad(rglru_scan(a, x), (a, x), g)
+            assert (rglru_scan_fwd.launches - f0,
+                    rglru_scan_bwd.launches - b0) == (1, 1)
+        want = torch.autograd.grad(rglru_scan_reference(a, x), (a, x), g)
+        for u, w in zip(got, want):
+            assert torch.equal(_bits(u), _bits(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m",
+                                  "recurrentgemma-2b"])
+def test_family_train_steps_are_deterministic_on_card(cuda_device, arch):
+    """Reduced widths at f32 (granite-moe at head_dim 64; xLSTM with
+    mlstm_chunk 16, so its chunked form and cummax run), three train
+    steps twice under torch.use_deterministic_algorithms(True): the MoE
+    gathers' backward, xLSTM's prefix sums (B4 at a = 1) and the RG-LRU
+    scan's backward raise nothing, two runs are bitwise equal, and the
+    losses are within 1e-4 of the CPU's."""
+    from repro_torch.train import (DataConfig, SyntheticLM, TrainConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.tree import tree_map, tree_paths
+    over = {"compute_dtype": "float32"}
+    if arch == "granite-moe-1b-a400m":
+        over["head_dim"] = 64
+    if arch == "xlstm-350m":
+        over["mlstm_chunk"] = 16
+    cfg = registry.get_reduced_config(arch, **over)
+    fns = registry.model_fns(cfg)
+    step = make_train_step(cfg, fns, TrainConfig(warmup_steps=2,
+                                                 total_steps=8))
+    first = init_train_state(torch.Generator().manual_seed(0), cfg, fns,
+                             "cpu")
+
+    def run(dev):
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=64, global_batch=4), dev)
+        state, losses = tree_map(lambda t: t.to(dev), first), []
+        for i in range(3):
+            state, m = step(state, data.batch_at(i))
+            losses.append(m["loss"].item())
+        return losses, tree_paths(tree_map(lambda t: t.cpu(), state))
+    torch.use_deterministic_algorithms(True)
+    try:
+        (l1, s1), (l2, s2) = run(cuda_device), run(cuda_device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert l1 == l2 and all(torch.equal(s1[k], s2[k]) for k in s1)
+    np.testing.assert_allclose(l1, run(torch.device("cpu"))[0], rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -56,6 +56,8 @@ from repro.train.data import pod_step_grid  # noqa: E402
 from repro_torch.core import isl as tisl  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.models.transformer import params_from_jax  # noqa: E402
+from repro_torch.models import rglru as trg  # noqa: E402
+from repro_torch.models import xlstm as tx  # noqa: E402
 from repro_torch.train import (AdamWConfig, DataConfig,  # noqa: E402
                                DiLoCoConfig, DiLoCoSupervisor, FTConfig,
                                SyntheticLM, TrainConfig, diloco_init,
@@ -335,6 +337,80 @@ def test_wire_bytes_and_isl_accounting_match_jax(m):
         for n_params in (10**6, 10**9):
             assert isl_bytes_per_step(n_params, 50, compress) == \
                 jdl.isl_bytes_per_step(n_params, 50, compress)
+
+
+# ------------------------------------------- the recurrent families ----
+
+CARRY_ARCHS = {"recurrentgemma-2b": trg, "xlstm-350m": tx}
+
+
+def _recurrent(arch, dtype=None):
+    """Both packages' reduced `arch` (the reference test's setup: init
+    from PRNGKey(0), lr 3e-3, 2 pods x H 2, seq 8, batch 2), the port's
+    params carried over from the reference's, and each package's first
+    round's step grid of batches."""
+    over = {} if dtype is None else {"compute_dtype": dtype}
+    with jax.enable_x64(False):
+        jcfg = jreg.get_reduced_config(arch, **over)
+        jfns = jreg.model_fns(jcfg)
+        jparams = jfns.init(jax.random.PRNGKey(0), jcfg)
+        jdata = JSyntheticLM(JDataConfig(vocab_size=jcfg.vocab_size,
+                                         seq_len=8, global_batch=2))
+        jbatches = jdata.batch_block(np.arange(4).reshape(2, 2))
+    tcfg = treg.get_reduced_config(arch, **over)
+    tparams = CARRY_ARCHS[arch].params_from_jax(
+        jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    tbatches = SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size, seq_len=8,
+                                      global_batch=2), "cpu").batch_block(
+        np.arange(4).reshape(2, 2))
+    return SimpleNamespace(
+        jcfg=jcfg, jfns=jfns, jparams=jparams, jbatches=jbatches,
+        tcfg=tcfg, tfns=treg.model_fns(tcfg), tparams=tparams,
+        tbatches=tbatches,
+        jtrain=JTrainConfig(adamw=JAdamW(lr=3e-3), warmup_steps=2,
+                            total_steps=100),
+        ttrain=TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=2,
+                           total_steps=100),
+        jdcfg=jdl.DiLoCoConfig(n_pods=2, inner_steps=2),
+        dcfg=DiLoCoConfig(n_pods=2, inner_steps=2))
+
+
+@pytest.mark.parametrize("arch", list(CARRY_ARCHS))
+def test_recurrent_fused_diloco_round_bit_identical(arch):
+    """The port's counterpart of tests/test_decode_state.py::
+    test_recurrent_fused_diloco_round_bit_identical: the fused round
+    runs the recurrent families (the RG-LRU scan and its backward, the
+    sLSTM loop and the mLSTM) and equals make_inner_steps + outer_step
+    bitwise, at the reduced config's own compute dtype."""
+    r = _recurrent(arch)
+    mask = torch.ones(2)
+    inner = make_inner_steps(r.tcfg, r.tfns, r.ttrain, r.dcfg)
+    ref, _ = inner(diloco_init(r.tparams, r.dcfg), r.tbatches)
+    ref = outer_step(ref, r.dcfg, pod_mask=mask)
+    rnd = make_diloco_round(r.tcfg, r.tfns, r.ttrain, r.dcfg)
+    got, metrics = rnd(diloco_init(r.tparams, r.dcfg), r.tbatches, mask,
+                       torch.tensor(THR))
+    _assert_trees_equal(got, ref)
+    assert torch.isfinite(metrics["loss"]).all()
+
+
+@pytest.mark.parametrize("arch", list(CARRY_ARCHS))
+def test_recurrent_round_matches_jax(arch):
+    """The port's fused round against the reference's at f32 compute:
+    the losses and every leaf of the state at the uncompressed rounds'
+    tolerance (rtol 1e-5, atol 1e-4)."""
+    r = _recurrent(arch, "float32")
+    with jax.enable_x64(False):
+        jr = jdl.make_diloco_round(r.jcfg, r.jfns, r.jtrain, r.jdcfg,
+                                   donate=False)
+        jd, jm = jr(jdl.diloco_init(r.jparams, r.jdcfg), r.jbatches,
+                    jnp.ones(2), jnp.asarray(THR, jnp.float32))
+    rnd = make_diloco_round(r.tcfg, r.tfns, r.ttrain, r.dcfg)
+    td, tm = rnd(diloco_init(r.tparams, r.dcfg), r.tbatches, torch.ones(2),
+                 torch.tensor(THR))
+    np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
+                               rtol=1e-5)
+    _assert_close(_tflat(td), _jflat(jd), 1e-5, 1e-4)
 
 
 # ---------------------------------------------- the port's own contracts --

@@ -29,11 +29,10 @@ from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import schedule as jsched  # noqa: E402
 from repro_torch.models import losses as tlosses  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
-from repro_torch.models.transformer import train_state_from_jax  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     AdamWConfig, DataConfig, SyntheticLM, TrainConfig, adamw_update,
     clip_by_global_norm, init_opt_state, init_train_state, make_eval_step,
-    make_train_step, warmup_cosine, wsd)
+    make_train_step, train_state_from_jax, warmup_cosine, wsd)
 from repro_torch.train import data as tdata  # noqa: E402
 from repro_torch.train.tree import tree_leaves, tree_map, tree_paths  # noqa: E402,E501
 

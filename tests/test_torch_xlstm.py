@@ -236,3 +236,37 @@ def test_init_cache_carries_are_f32_whatever_the_dtype():
     assert torch.isinf(c["slstm"][2]).all() and torch.isinf(
         c["mlstm"][2]).all()
     assert tuple(c["mlstm"][0].shape) == (2, 2, 4, 32, 32)
+
+
+def test_prefix_sums_are_in_order_f32_sums_and_no_float_cumsum(
+        model, monkeypatch):
+    """The mLSTM's log-forget prefix sums are the RG-LRU scan at a = 1:
+    f32 sums taken in order, bitwise numpy's sequential float32 cumsum
+    (torch's CPU cumsum of floats accumulates in double).  No float
+    torch.cumsum remains on the training path, forward or backward,
+    parallel or chunked: it has no deterministic CUDA kernel, and the
+    card's training runs under torch.use_deterministic_algorithms."""
+    x = np.random.default_rng(0).standard_normal((3, 70, 4)).astype(
+        np.float32)
+    got = tx._prefix_sum(torch.from_numpy(x))
+    assert torch.equal(got, torch.from_numpy(np.cumsum(x, axis=1,
+                                                       dtype=np.float32)))
+    real_fn, real_method = torch.cumsum, torch.Tensor.cumsum
+
+    def guard(real):
+        def cumsum(t, *a, **k):
+            assert not t.is_floating_point(), "a float cumsum"
+            return real(t, *a, **k)
+        return cumsum
+    monkeypatch.setattr(torch, "cumsum", guard(real_fn))
+    monkeypatch.setattr(torch.Tensor, "cumsum", guard(real_method))
+    _, tcfg, _, tparams = model
+    params = {k: ({kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.clone().requires_grad_())
+              for k, v in tparams.items()}
+    for s, chunk in ((12, 256), (40, 16)):
+        cfg = dataclasses.replace(tcfg, mlstm_chunk=chunk)
+        toks = torch.randint(0, 128, (2, s), generator=torch.Generator()
+                             .manual_seed(s))
+        tx.loss_fn(params, {"tokens": toks, "labels": toks.roll(-1, 1)},
+                   cfg).backward()
