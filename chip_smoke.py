@@ -12,6 +12,7 @@
   python3 chip_smoke.py --phase 20   # phases 1 and 20 only, no result line
   python3 chip_smoke.py --phase 21   # phases 1, the new rows of 2b and 2c
                                      # and 21-22 only, no result line
+  python3 chip_smoke.py --phase 23   # phases 1 and 23 only, no result line
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -261,10 +262,12 @@ phase took.
    side) with --sdc-rate-multiplier 2e3 exits 0 having injected,
    detected and rolled back, and with 1e5 raises "persistent
    non-finite".  (b) The J2
-   orbit in float64 on the card: simulate_cluster (81 satellites, one
-   orbit at dt 5 s) within 1e-6 m and 1e-9 m/s of the CPU port, direct
-   neighbours 100-200 m; the energy-matched Keplerian cluster closes to
-   < 5 mm after an orbit at dt 2 s; j2_drift_rate at kappa 1.0 and 0.999
+   orbit in float64 on the card, through the paper's entries
+   (`repro_torch.paper`): fig2_constellation's simulate_cluster (81
+   satellites, one orbit at dt 5 s) within 1e-6 m and 1e-9 m/s of the
+   same entry on the CPU, its printed line equal, direct neighbours
+   100-200 m; the energy-matched Keplerian cluster closes to < 5 mm
+   after an orbit at dt 2 s; j2_drift's rates at kappa 1.0 and 0.999
    over 6 orbits (both in one integration), the tuned rate under half
    the base;
    ConstellationLinkModel(integrate=True) at 8 pods, masks equal to the
@@ -275,7 +278,7 @@ phase took.
    fall's.  The CPU sides of (b) and (c) run in one worker process while
    the card works.  Each prints its seconds.
 21. Train granite-moe-1b-a400m (all 24 layers: 32 experts top-8, H
-   16/8), xlstm-350m (2 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
+   16/8), xlstm-350m (1 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
    (5 of 26 layers: one remat'd (rec, rec, attn) group and the two tail
    recurrent blocks, the loss in chunks of 256 positions) at their
    published widths in phase 18's setting: bf16 compute, f32 masters
@@ -296,6 +299,24 @@ phase took.
    losses within 1e-3; the micro recurrent DiLoCo round (recurrentgemma
    and xlstm reduced, 2 pods x H 2) within 1e-3 of the CPU and on the
    card bitwise equal to make_inner_steps + outer_step.
+23. The paper's system model (slice 10).  In this process, the paper
+   entry diloco_traffic on the card (its micro DiLoCo run: the reduced
+   demo LM at 2 layers, d 32, head_dim 16, which B3 runs zero-padded to
+   64; 12 rounds of 2 pods x 4 steps under the supervisor with
+   constellation masks): mask counts and orbit profile equal to the CPU
+   port's (a worker process), bf16 losses within 2^-8 relative, and the
+   same run in f32 within 1e-3 of the CPU's f32 run (phase 22's limit);
+   B3 launches asserted.  Side by side, each a process on the card:
+   `python -m repro_torch.paper` (its host entries; Fig. 2 and the J2
+   drift ran in 20b), its printed lines equal to the same entries run
+   here; and the five examples (examples/torch_port: quickstart and
+   serve_batch at their defaults, `train_100m.py --full --steps 16
+   --inner 8`, constellation_design, `formation_flight.py --iters 6
+   --intervals 8`), each exiting 0 with its sentinel line, the B3 and B1
+   launches the training and serving ones print counted into the
+   kernels line.  Then the analytic roofline (`repro_torch.analysis`) of
+   phase 5's train step priced at H100_SXM beside phase 5's measured
+   fused-block step time, and useful_flops / (step time x peak).
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -303,8 +324,8 @@ name and power limit, and before that one JSON line listing the kernels
 (B1 at dh 64, B2, B3, B4 at the serve and the long prefill shapes,
 B1 at dh 256 in two rows: the serve run's rings and full rings, and B1
 and B2 at H 16 / Hkv 8) with their launches on their main paths (B1's
-dh-64 row phases 3, 9, 11 and 12; B2's phases 3 and 11; B3's phases 5,
-8, 9 and 20a; B4's serve row and B1's dh-256 serve-rings row phase 6's
+dh-64 row phases 3, 9, 11, 12 and 23; B2's phases 3 and 11; B3's phases
+5, 8, 9, 20a and 23; B4's serve row and B1's dh-256 serve-rings row phase 6's
 16-slot runs and phase 12; the long rows phase 6's long runs; the H 16
 rows phase 14; the `_mha`, `_dh160`, `_dh128` and `_h40` rows phase 17's
 minicpm-2b, stablelm-12b, command-r-35b and qwen2.5-32b runs; the new B3
@@ -328,8 +349,13 @@ from pathlib import Path
 # first CUDA call; the train phase compares two runs bitwise
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor-core rate
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.core.system import H100_SXM  # noqa: E402
+
+# the card's data-sheet rates (repro_torch.core.system.H100_SXM, which the
+# analytic roofline is priced at too)
+HBM_BYTES_PER_S = H100_SXM.hbm_bytes_per_s
+PEAK_OPS = {"bfloat16": H100_SXM.peak_bf16_flops,
             "float32": 67e12}      # f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 H, HKV, DH = 12, 4, 64
@@ -863,7 +889,9 @@ def kernel_ms(torch, fn, reps=3, tries=3):
 
 def train_phase(torch):
     """Full-width training through FaultTolerantTrainer, fused and
-    per-step, compared bitwise; returns B3's launches over both runs."""
+    per-step, compared bitwise; returns B3's launches over both runs and
+    the wall seconds of one fused block of 8 steps (phase 23 sets it
+    beside the analytic roofline)."""
     import numpy as np
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -964,7 +992,7 @@ def train_phase(torch):
           f"{k * seq * batch / wall:.1f} tok/s", flush=True)
     profile_window(torch, f"one fused block of {k} train steps", one_block,
                    watch=("flash_fwd_tc",))
-    return runs["run_fused"][2] + runs["run"][2]
+    return runs["run_fused"][2] + runs["run"][2], wall
 
 
 def train_reference(torch):
@@ -3273,13 +3301,14 @@ def branch_paths(torch):
 # phase 21's configs: arch -> (layers kept, config overrides).
 # granite-moe-1b-a400m at its full 24 layers (1.335B params: f32 AdamW
 # state, old and new, and remat activations peak near 42 GB); xlstm-350m at
-# 2 of 12 sLSTM/mLSTM pairs (the sLSTM is a Python loop over the 1024
-# positions: launch-bound, ~6 s a step at 2 pairs); recurrentgemma-2b at 5
+# 1 of 12 sLSTM/mLSTM pairs (the sLSTM is a Python loop over the 1024
+# positions: host-bound, 6.3-8.7 s a step at 2 pairs, the longest part
+# of a whole run); recurrentgemma-2b at 5
 # of 26 layers, one (rec, rec, attn) group under remat and the two tail
 # recurrent blocks without, with the loss in chunks of 256 positions
 # ((8, 1024, 256000) f32 logits would be 8.4 GB)
 FAMILY_TRAIN = {"granite-moe-1b-a400m": (24, {}),
-                "xlstm-350m": (4, {}),
+                "xlstm-350m": (2, {}),
                 "recurrentgemma-2b": (5, {"loss_chunk": 256})}
 
 
@@ -3311,17 +3340,18 @@ def family_launchers():
     --inner-steps 8 --compress int8`) and 8 steps of xlstm-350m and
     recurrentgemma-2b; each exits 0, granite launches B3 and the other two
     B4 forward and backward."""
-    runs = ((("repro_torch.launch.train", "--arch", "granite-moe-1b-a400m",
-              "--diloco-pods", "2", "--inner-steps", "8", "--compress",
-              "int8"), (("B3", r"flash-attention kernel launches "),)),
-            (("repro_torch.launch.train", "--arch", "xlstm-350m", "--steps",
-              "8"), (("B4", r"scan kernel launches: forward "),
-                      ("B4 bwd", r"scan kernel launches: forward \d+ "
-                                 r"backward "))),
-            (("repro_torch.launch.train", "--arch", "recurrentgemma-2b",
-              "--steps", "8"), (("B4", r"scan kernel launches: forward "),
-                                 ("B4 bwd", r"scan kernel launches: "
-                                            r"forward \d+ backward "))))
+    runs = ((("-m", "repro_torch.launch.train", "--arch",
+              "granite-moe-1b-a400m", "--diloco-pods", "2", "--inner-steps",
+              "8", "--compress", "int8"),
+             (("B3", r"flash-attention kernel launches "),)),
+            (("-m", "repro_torch.launch.train", "--arch", "xlstm-350m",
+              "--steps", "8"),
+             (("B4", r"scan kernel launches: forward "),
+              ("B4 bwd", r"scan kernel launches: forward \d+ backward "))),
+            (("-m", "repro_torch.launch.train", "--arch",
+              "recurrentgemma-2b", "--steps", "8"),
+             (("B4", r"scan kernel launches: forward "),
+              ("B4 bwd", r"scan kernel launches: forward \d+ backward "))))
     results = _launchers([args for args, _ in runs])
     for (args, counts), (rc, out, err, dt) in zip(runs, results):
         cmd = " ".join(args)
@@ -3502,16 +3532,18 @@ CONTROL_ITERS = 25       # phase 20c's iterations (the reference test's)
 
 
 def _launchers(runs, timeout=600):
-    """Port launchers side by side, each in a process of its own on the
-    card (the launchers' default device): a list of (exit code, stdout,
-    stderr, s to its exit) in the order of `runs`.  Every process still
-    running at the time limit, or when this fails, is killed."""
+    """Port launchers or examples side by side, each in a process of its
+    own on the card (their default device); a run is the interpreter's
+    arguments ("-m", module, ... or a script's path, ...).  Returns a list
+    of (exit code, stdout, stderr, s to its exit) in the order of `runs`.
+    Every process still running at the time limit, or when this fails, is
+    killed."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
     files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
              for _ in runs]
-    procs = [subprocess.Popen([sys.executable, "-m", *args], stdout=o,
+    procs = [subprocess.Popen([sys.executable, *args], stdout=o,
                               stderr=e, text=True, env=env, cwd=root)
              for args, (o, e) in zip(runs, files)]
     done = [None] * len(procs)
@@ -3556,9 +3588,9 @@ def launcher_defaults():
     from repro_torch.models import registry
     dh = registry.get_reduced_config("suncatcher-lm-100m").hd
     check(dh < 64, f"the launchers' default config has head_dim {dh}")
-    runs = ((("repro_torch.launch.train", "--steps", "8"), "B3",
+    runs = ((("-m", "repro_torch.launch.train", "--steps", "8"), "B3",
              r"flash-attention kernel launches "),
-            (("repro_torch.launch.serve", "--requests", "4"), "B1",
+            (("-m", "repro_torch.launch.serve", "--requests", "4"), "B1",
              r"decode-attention kernel launches: dense "))
     results = _launchers([args for args, _, _ in runs])
     for (args, kernel, pattern), (rc, out, err, dt) in zip(runs, results):
@@ -3681,7 +3713,7 @@ def sdc_phase(torch):
     torch.cuda.empty_cache()
 
     runs = (("2e3", True), ("1e5", False))
-    results = _launchers([("repro_torch.launch.train", "--steps", "6",
+    results = _launchers([("-m", "repro_torch.launch.train", "--steps", "6",
                            "--sdc-rate-multiplier", mult)
                           for mult, _ in runs])
     for (mult, ok), (rc, out, err, dt) in zip(runs, results):
@@ -3735,21 +3767,22 @@ def _liveness_j2():
 
 def slice8_cpu_side():
     """Phase 20's CPU references, run in a worker process while the card
-    runs phase 20a: the J2 orbit (one orbit, dt 5 s), the integrate=True
+    runs phase 20a: the J2 orbit (the paper's Fig. 2 entry: one orbit, dt
+    5 s), the integrate=True
     liveness masks at 8 pods and the controller's 25 iterations, each
     timed; plain numbers and numpy arrays out."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
 
     from repro_torch.core.isl import ConstellationLinkModel
-    from repro_torch.core.orbital import (ClusterDesign, simulate_cluster,
-                                          train_controller)
+    from repro_torch.core.orbital import train_controller
+    from repro_torch.paper import fig2_constellation
     torch.set_num_threads(1)
     cpu = torch.device("cpu")
     out = {}
     t0 = time.perf_counter()
-    out["hill"] = simulate_cluster(ClusterDesign(), n_orbits=1.0,
-                                   dt=5.0, device=cpu)[1].numpy()
+    lines, arrays = fig2_constellation.run(device=cpu)
+    out["hill"], out["fig2_line"] = arrays["hill"].numpy(), lines[0][2]
     out["orbit_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     m = ConstellationLinkModel(cfg=_liveness_j2(), device=cpu)
@@ -3765,47 +3798,52 @@ def slice8_cpu_side():
 
 
 def orbit_phase(torch, cpu):
-    """Phase 20b: the J2 orbit in float64 on the card.  simulate_cluster
-    of the 81-satellite design, one orbit at dt 5 s, against the CPU port:
-    Hill positions within 1e-6 m and velocities within 1e-9 m/s (the same
-    elementwise IEEE operations in the same order on both); neighbour
-    distances 100-200 m (direct) as tests/test_orbital.py bounds them; the
-    energy-matched Keplerian cluster closes to < 5 mm after an orbit at dt
-    2 s; j2_drift_rate at kappa 1.0 and 0.999 over 6 orbits, the tuned
-    rate under half the base; ConstellationLinkModel(integrate=True) at 8
-    pods on the card: masks over 256 rounds equal the CPU port's.  `cpu`
-    is the future of `slice8_cpu_side`, awaited first, so the card side
-    is timed on a host the worker no longer contends; both kappas
-    integrate at once (`tune_axis_ratio`, each bitwise its own run)."""
+    """Phase 20b: the J2 orbit in float64 on the card, through the paper's
+    entries (`repro_torch.paper`).  Fig. 2's (simulate_cluster of the
+    81-satellite design, one orbit at dt 5 s) against the same entry on
+    the CPU: Hill positions within 1e-6 m and velocities within 1e-9 m/s
+    (the same elementwise IEEE operations in the same order on both), its
+    printed line equal; neighbour distances 100-200 m (direct) as
+    tests/test_orbital.py bounds them; the energy-matched Keplerian
+    cluster closes to < 5 mm after an orbit at dt 2 s; the J2 drift
+    entry's (kappa 1.0 and 0.999 over 6 orbits, both in one integration,
+    `tune_axis_ratio`, each bitwise its own run): the tuned rate under
+    half the base; ConstellationLinkModel(integrate=True) at 8 pods on the
+    card: masks over 256 rounds equal the CPU port's.  `cpu` is the future
+    of `slice8_cpu_side`, awaited first, so the card side is timed on a
+    host the worker no longer contends."""
     import numpy as np
 
     from repro_torch.core.isl import ConstellationLinkModel
     from repro_torch.core.orbital import (ClusterDesign, neighbor_distances,
-                                          simulate_cluster, tune_axis_ratio)
+                                          simulate_cluster)
+    from repro_torch.paper import fig2_constellation, j2_drift
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     ref = cpu.result()
     print(f"  CPU-side worker finished ({time.perf_counter() - t0:.1f} s "
           f"waited); the card side below runs alone", flush=True)
     t0 = time.perf_counter()
-    _, hill, _ = simulate_cluster(ClusterDesign(), n_orbits=1.0, dt=5.0,
-                                  device=dev)
-    hill = hill.cpu()
+    lines, arrays = fig2_constellation.run(device=dev)
+    hill = arrays["hill"].cpu()
     t_card = time.perf_counter() - t0
     hill_cpu, t_cpu = torch.from_numpy(ref["hill"]), ref["orbit_s"]
     perr = (hill[..., :3] - hill_cpu[..., :3]).abs().max().item()
     verr = (hill[..., 3:] - hill_cpu[..., 3:]).abs().max().item()
     check(perr <= 1e-6 and verr <= 1e-9, f"J2 orbit card vs CPU: position "
           f"{perr} m, velocity {verr} m/s")
+    check(lines[0][2] == ref["fig2_line"], f"Fig. 2 line, card: "
+          f"{lines[0][2]!r}; CPU: {ref['fig2_line']!r}")
     direct, diag = neighbor_distances(hill)
     lo, hi = direct.min().item(), direct.max().item()
     check(90.0 < lo < 110.0 and 190.0 < hi < 215.0,
           f"direct neighbour distances {lo:.2f}-{hi:.2f} m")
-    print(f"  simulate_cluster (81 sats, 1 orbit, dt 5 s, f64): card "
-          f"{t_card:.2f} s, CPU {t_cpu:.2f} s | card vs CPU max |d pos| "
-          f"{perr:.3e} m, |d vel| {verr:.3e} m/s | direct neighbours "
-          f"{lo:.2f}-{hi:.2f} m, diagonal {diag.min().item():.2f}-"
-          f"{diag.max().item():.2f} m", flush=True)
+    print(f"  paper entry fig2_constellation (simulate_cluster, 81 sats, 1 "
+          f"orbit, dt 5 s, f64): card {t_card:.2f} s, CPU {t_cpu:.2f} s | "
+          f"card vs CPU max |d pos| {perr:.3e} m, |d vel| {verr:.3e} m/s | "
+          f"direct neighbours {lo:.2f}-{hi:.2f} m, diagonal "
+          f"{diag.min().item():.2f}-{diag.max().item():.2f} m", flush=True)
+    print(f"    {lines[0][0]}: {lines[0][2]} (== the CPU's)", flush=True)
 
     t0 = time.perf_counter()
     _, kep, _ = simulate_cluster(ClusterDesign(energy_matched=True),
@@ -3817,12 +3855,12 @@ def orbit_phase(torch, cpu):
           flush=True)
 
     t0 = time.perf_counter()
-    _, rates = tune_axis_ratio(ClusterDesign(), kappas=(1.0, 0.999),
-                               n_orbits=6.0, device=dev)
+    lines, rates = j2_drift.run(device=dev)
     base, tuned = rates[1.0], rates[0.999]
-    print(f"  j2_drift_rate (6 orbits, card, both kappas in one "
+    print(f"  paper entry j2_drift (6 orbits, card, both kappas in one "
           f"integration): kappa 1.0 {base:.4f}, kappa 0.999 {tuned:.4f} "
           f"m/s/yr per km ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"    {lines[0][0]}: {lines[0][2]}", flush=True)
     check(tuned < 0.5 * base,
           f"tuned drift {tuned} not under half the base {base}")
 
@@ -3901,6 +3939,246 @@ def slice8_paths(torch):
     return b3
 
 
+def _quickstart_launches(out):
+    """B3 launches quickstart.py must print: 2 x n_layers (the forward and
+    the remat recompute) for every train step its trainer ran, the steps
+    it kept plus the one it threw away before each rollback."""
+    from repro_torch.models import registry
+    n_layers = registry.get_reduced_config("suncatcher-lm-100m").n_layers
+    steps = _printed_count(r"(?m)^steps: ", out, "quickstart.py")
+    rollbacks = _printed_count(r"'rollbacks': ", out, "quickstart.py")
+    return 2 * n_layers * (steps + rollbacks), \
+        f"2 x {n_layers} layers x ({steps} steps + {rollbacks} rollbacks)"
+
+
+def _serve_batch_launches(out):
+    """B1 launches serve_batch.py must print: n_layers for every decode
+    sub-step, decode_block sub-steps in each decode block it ran."""
+    from repro_torch.models import registry
+    from repro_torch.serving import EngineConfig
+    n_layers = registry.get_reduced_config("suncatcher-lm-100m").n_layers
+    blocks = _printed_count(r"'decode_blocks': ", out, "serve_batch.py")
+    sub = blocks * EngineConfig().decode_block
+    return n_layers * sub, f"{n_layers} layers x {sub} sub-steps"
+
+
+def _train_100m_launches(out):
+    """B3 launches `train_100m.py --full --steps 16 --inner 8` must print:
+    2 x n_layers for each of 2 rounds x 2 pods x 8 inner steps."""
+    from repro_torch.models import registry
+    n_layers = registry.get_config("suncatcher-lm-100m").n_layers
+    steps = (16 // 8) * 2 * 8
+    return 2 * n_layers * steps, f"2 x {n_layers} layers x {steps} steps"
+
+
+# phase 23: the five examples (script, arguments, sentinel line, and the
+# kernel whose launches it prints: its name, the printed text before the
+# count, and the count it must be, from the example's output)
+EXAMPLES = (
+    ("quickstart.py", (),
+     "OK: loss decreased under injected radiation faults",
+     ("B3", r"flash-attention kernel launches ", _quickstart_launches)),
+    ("serve_batch.py", (), "OK: 10 requests served through 4 slots",
+     ("B1", r"decode-attention kernel launches: dense ",
+      _serve_batch_launches)),
+    ("train_100m.py", ("--full", "--steps", "16", "--inner", "8"),
+     "OK: DiLoCo training complete",
+     ("B3", r"flash-attention kernel launches ", _train_100m_launches)),
+    ("constellation_design.py", (), "launch economics", None),
+    ("formation_flight.py", ("--iters", "6", "--intervals", "8"),
+     "OK: learned controller beats free fall", None))
+# the runner's entries that phase 23 does not run through its CLI: Fig. 2
+# and the J2 drift ran in phase 20b, diloco_traffic runs in this process
+# (its B3 launches are counted here)
+RUNNER_SKIP = ("fig2_constellation", "j2_drift", "diloco_traffic")
+# what the micro DiLoCo run of diloco_traffic must give exactly on the
+# card and the CPU: mask counts and the orbit profile
+MASK_COUNTS = ("rounds_survived", "masked_pod_fraction",
+               "straggler_pod_rounds", "outage_pod_rounds",
+               "mask_transitions", "orbit_masked_pod_fraction",
+               "orbit_mask_transitions", "round_time_s", "round_deadline_s")
+
+
+def paper_cpu_side():
+    """Phase 23's CPU reference, run in a worker process while the card
+    works: diloco_traffic's micro DiLoCo run (`_constellation_stats`) on
+    the CPU in bf16 (the entry's) and in f32, each timed."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+
+    from repro_torch.paper.diloco_traffic import _constellation_stats
+    torch.set_num_threads(1)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        out[dtype] = _constellation_stats("cpu", compute_dtype=dtype)
+        out[dtype + " s"] = time.perf_counter() - t0
+    return out
+
+
+def diloco_entry_phase(torch, cpu):
+    """Phase 23: the paper's diloco_traffic entry on the card: its micro
+    DiLoCo run (the reduced demo LM at 2 layers, d 32, head_dim 16, which
+    B3 runs zero-padded to 64; 12 rounds of 2 pods x 4 steps under the
+    supervisor with constellation masks) gives every mask count and the
+    orbit profile of the CPU port's run exactly, and its bf16 losses
+    within 2^-8 relative (one bf16 ulp) of the CPU's; the same run in f32
+    gives the CPU's f32 counts exactly and losses within 1e-3 (phase 22's
+    limit).  Returns B3's launches in the entry's run."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.paper import diloco_traffic
+    dev = torch.device("cuda")
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    lines, rows = diloco_traffic.run(device=dev)
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    launches = flash_attention.launches
+    # 2 x n_layers (forward and remat recompute) a step; every pod runs its
+    # inner steps in every round, masked or not
+    n_layers = diloco_traffic.MICRO["n_layers"]
+    rounds = rows["constellation"]["rounds_survived"]
+    want = 2 * n_layers * 2 * 4 * rounds
+    check(launches == want, f"B3 launched {launches} times in "
+          f"diloco_traffic's run, want 2 x {n_layers} layers x 2 pods x 4 "
+          f"inner steps x {rounds} rounds = {want}")
+    t0 = time.perf_counter()
+    f32 = diloco_traffic._constellation_stats(dev, compute_dtype="float32")
+    t_f32 = time.perf_counter() - t0
+    ref = cpu.result()
+    losses = ("first_loss", "last_loss")
+    for dtype, got in (("bfloat16", rows["constellation"]),
+                       ("float32", f32)):
+        want = ref[dtype]
+        bad = {k: (got[k], want[k]) for k in MASK_COUNTS
+               if got[k] != want[k]}
+        check(not bad, f"diloco_traffic {dtype}: card vs CPU mask counts "
+              f"{bad}")
+    got, want = rows["constellation"], ref["bfloat16"]
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in losses)
+    err = max(abs(f32[k] - ref["float32"][k]) for k in losses)
+    check(rel <= 2.0 ** -8, f"diloco_traffic bf16 losses card vs CPU: "
+          f"{rel} relative (limit 2^-8)")
+    check(err <= 1e-3, f"diloco_traffic f32 losses card vs CPU: {err} "
+          f"(limit 1e-3)")
+    for name, _, derived in lines:
+        print(f"    {name}: {derived}", flush=True)
+    print(f"  paper entry diloco_traffic on the card: {t_bf16:.2f} s (CPU "
+          f"{ref['bfloat16 s']:.2f} s), B3 launched {launches} times | mask "
+          f"counts and orbit profile == the CPU's (bf16 and f32) | bf16 "
+          f"loss {got['first_loss']:.4f} -> {got['last_loss']:.4f} (CPU "
+          f"{want['first_loss']:.4f} -> {want['last_loss']:.4f}), "
+          f"{rel:.3e} relative (limit 2^-8) | f32 loss "
+          f"{f32['first_loss']:.4f} -> {f32['last_loss']:.4f}, card vs CPU "
+          f"{err:.3e} (limit 1e-3; card {t_f32:.2f} s, CPU "
+          f"{ref['float32 s']:.2f} s)", flush=True)
+    return launches
+
+
+def check_runs(results):
+    """Phase 23's subprocesses: the paper runner (its host entries'
+    lines equal to the same entries run here) and the five examples (exit
+    0, sentinel, launches where they train or serve).  Returns {"B1": n,
+    "B3": n} summed over the examples."""
+    import importlib
+
+    from repro_torch.paper import ENTRIES
+    (rc, out, err, dt), results = results[0], results[1:]
+    check(rc == 0, f"python -m repro_torch.paper exited {rc}:\n"
+          f"{err[-3000:]}")
+    want = [f'{n},"{d}"' for name in ENTRIES if name not in RUNNER_SKIP
+            for n, _, d in
+            importlib.import_module(f"repro_torch.paper.{name}").run()[0]]
+    lines = out.splitlines()
+    got = [re.sub(r",[\d.]+,", ",", ln, count=1) for ln in lines[1:]]
+    check(lines[:1] == ["name,us_per_call,derived"] and got == want,
+          f"the paper runner printed:\n{out[-3000:]}\nwant:\n"
+          + "\n".join(want))
+    print(f"  python -m repro_torch.paper --skip {','.join(RUNNER_SKIP)} "
+          f"(cuda): exit 0 in {dt:.1f} s, its {len(got)} host lines == the "
+          f"entries' here", flush=True)
+    for ln in lines[1:]:
+        print(f"    {ln[:300]}", flush=True)
+    counts = {"B1": 0, "B3": 0}
+    for (name, args, sentinel, kernel), (rc, out, err, dt) in zip(
+            EXAMPLES, results):
+        cmd = " ".join(("examples/torch_port/" + name,) + args)
+        check(rc == 0, f"{cmd} exited {rc}:\n{err[-3000:]}")
+        check(sentinel in out, f"{cmd}: no {sentinel!r} in:\n{out[-2000:]}")
+        seen = ""
+        if kernel is not None:
+            n = _printed_count(kernel[1], out, cmd)
+            want, how = kernel[2](out)
+            check(n == want, f"{cmd}: {kernel[0]} launched {n} times, want "
+                  f"{want} ({how})")
+            counts[kernel[0]] += n
+            seen = f", {kernel[0]} launched {n} times"
+        print(f"  {cmd} (cuda): exit 0 in {dt:.1f} s{seen}", flush=True)
+        for ln in [ln for ln in out.splitlines() if ln.strip()][-3:]:
+            print(f"    {ln.strip()[:300]}", flush=True)
+    return counts
+
+
+def analytic_line(block_s, smi):
+    """Phase 23: the analytic roofline of phase 5's train step (the demo
+    LM at full width, batch 8, seq 1024, one chip) priced at H100_SXM,
+    beside phase 5's measured fused-block step time (None where phase 5
+    did not run) and useful_flops / (step time x peak)."""
+    from repro_torch.analysis import analytic_roofline, useful_flops
+    from repro_torch.core import H100_SXM
+    from repro_torch.models import registry
+    cfg = registry.get_config("suncatcher-lm-100m")
+    batch, seq, k = 8, 1024, 8
+    t = analytic_roofline(cfg, "train", batch, seq, chips=1, data_shards=1,
+                          model_shards=1, chip=H100_SXM)
+    useful = useful_flops(cfg, "train", batch, seq)
+    print(f"  analytic roofline, {cfg.name} train step (batch {batch}, seq "
+          f"{seq}, 1 chip) at {H100_SXM.name} "
+          f"({H100_SXM.peak_bf16_flops:.4g} FLOP/s bf16, "
+          f"{H100_SXM.hbm_bytes_per_s:.4g} B/s): compute "
+          f"{t['compute_s'] * 1e3:.3f} ms ({t['flops_per_device']:.4e} "
+          f"FLOPs), memory {t['memory_s'] * 1e3:.3f} ms "
+          f"({t['bytes_per_device']:.4e} B), bound "
+          f"{t['step_time_s'] * 1e3:.3f} ms ({t['dominant']}); useful_flops "
+          f"{useful:.4e}", flush=True)
+    if block_s is None:
+        print("  measured step: phase 5 did not run", flush=True)
+        return
+    step = block_s / k
+    print(f"  measured, phase 5's fused block of {k} steps / {k}: "
+          f"{step * 1e3:.3f} ms a step = {step / t['step_time_s']:.2f}x the "
+          f"analytic bound; useful_flops / (step time x peak) = "
+          f"{useful / (step * H100_SXM.peak_bf16_flops):.4f} | card {smi}",
+          flush=True)
+
+
+def paper_paths(torch, block_s, smi):
+    """Phase 23: the paper runner's CLI and the five examples, each a
+    process of its own on the card, side by side, while this process runs
+    the diloco_traffic entry on the card and a worker its CPU reference;
+    then the analytic roofline line.  Returns {"B1": n, "B3": n}: the
+    examples' launches plus the entry's B3."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = "examples/torch_port/"
+    runs = [("-m", "repro_torch.paper", "--skip", ",".join(RUNNER_SKIP))]
+    runs += [(root + name, *args) for name, args, _, _ in EXAMPLES]
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool, \
+            ThreadPoolExecutor(1) as threads:
+        cpu = pool.submit(paper_cpu_side)
+        procs = threads.submit(_launchers, runs)
+        b3 = diloco_entry_phase(torch, cpu)
+        counts = check_runs(procs.result())
+    counts["B3"] += b3
+    analytic_line(block_s, smi)
+    return counts
+
+
+PAPER_TITLE = ("phase 23: the paper's entries and the five examples on the "
+               "card; the analytic roofline of phase 5's step")
+
+
 def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
@@ -3910,17 +4188,18 @@ def main(argv):
     only_branch = argv == ["--phase", "17"]
     only_slice8 = argv == ["--phase", "20"]
     only_family_train = argv == ["--phase", "21"]
+    only_paper = argv == ["--phase", "23"]
     if argv and not (only_2c or only_new or only_plane or only_family
-                     or only_branch or only_slice8 or only_family_train):
+                     or only_branch or only_slice8 or only_family_train
+                     or only_paper):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
-              "--phase 14 | --phase 17 | --phase 20 | --phase 21]",
-              file=sys.stderr)
+              "--phase 14 | --phase 17 | --phase 20 | --phase 21 | "
+              "--phase 23]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels.decode_attention import kernel as b12
     from repro_torch.kernels.flash_attention import kernel as b3
     from repro_torch.kernels.rglru_scan import kernel as b4
@@ -4006,6 +4285,12 @@ def main(argv):
         print(f"phases 21-22 alone: B4 forward launches {fam['B4']}; no "
               f"result line")
         return 0
+    if only_paper:
+        phase(PAPER_TITLE)
+        print(f"  launches: {paper_paths(torch, None, smi)}", flush=True)
+        phase()
+        print("phase 23 alone: no result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -4047,7 +4332,7 @@ def main(argv):
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
-        rows[2]["launches"] = train_phase(torch)
+        rows[2]["launches"], block_s = train_phase(torch)
         train_reference(torch)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -4093,6 +4378,12 @@ def main(argv):
     fam_rows["rglru_scan_bwd"]["launches"] = fam["B4 bwd"]
     rows[3]["launches"] += fam["B4"]         # B4's training forwards
     rows.extend(fam_rows.values())
+    torch.cuda.empty_cache()
+
+    phase(PAPER_TITLE)
+    paper = paper_paths(torch, block_s, smi)
+    rows[0]["launches"] += paper["B1"]       # serve_batch (dh 16 -> 64)
+    rows[2]["launches"] += paper["B3"]       # diloco_traffic, the examples
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")
 

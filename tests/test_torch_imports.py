@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports jax or the JAX package, every module imports
-with both blocked, and the port's serve launcher runs on the CPU only
-when asked to (the train launcher's CLI: tests/test_torch_training.py)."""
+"""The PyTorch port stands alone: no module of `src/repro_torch/`, no
+port example (`examples/torch_port/`) and not `chip_smoke.py` imports jax
+or the JAX package, every module imports with both blocked (the paper
+runner's `__main__` doing nothing on import), and the port's serve
+launcher runs on the CPU only when asked to (the train launcher's CLI:
+tests/test_torch_training.py)."""
 import ast
 import os
 import subprocess
@@ -13,7 +15,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+SRC = ROOT / "src"
+FILES = sorted((SRC / "repro_torch").rglob("*.py")) + \
+    sorted((ROOT / "examples" / "torch_port").glob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
 
@@ -24,6 +28,7 @@ def _forbidden(name: str) -> bool:
 
 def test_port_files_exist():
     assert len(FILES) > 10 and all(p.exists() for p in FILES)
+    assert len([p for p in FILES if p.parent.name == "torch_port"]) == 5
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -40,10 +45,11 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_every_port_module_imports_without_jax_or_the_reference():
-    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+    mods = sorted(".".join(p.relative_to(SRC).with_suffix("")
                            .parts).removesuffix(".__init__")
-                  for p in FILES if p.name != "chip_smoke.py")
+                  for p in FILES if p.is_relative_to(SRC))
     assert "repro_torch.train.fault_tolerance" in mods
+    assert "repro_torch.paper.__main__" in mods
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
@@ -54,6 +60,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                                    OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
+    # the runner's work sits under its __main__ guard: importing it
+    # prints nothing (unguarded, it would print its CSV header or refuse
+    # the default device)
+    assert proc.stdout == "", proc.stdout[-2000:]
 
 
 def _serve(*args):
