@@ -13,6 +13,7 @@
   python3 chip_smoke.py --phase 21   # phases 1, the new rows of 2b and 2c
                                      # and 21-22 only, no result line
   python3 chip_smoke.py --phase 23   # phases 1 and 23 only, no result line
+  python3 chip_smoke.py --phase 24   # phases 1 and 24 only, no result line
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -188,8 +189,8 @@ phase took.
    paged, and recurrentgemma reduced at d_model 256), f32, 2 + 2 pods, an
    outage schedule, on the card and on the CPU: tokens and every
    plane_stats() counter equal.
-14. Serve granite-moe-1b-a400m at its published widths, 12 of its 24
-   layers (all 24 until slice 9; d 1024, 16/8 heads, dh 64, 32 experts
+14. Serve granite-moe-1b-a400m at its published widths, 6 of its 24
+   layers (all 24 until slice 9, 12 until slice 11; d 1024, 16/8 heads, dh 64, 32 experts
    top-8, d_ff 512, vocab 49408; 1.335B params at full depth)
    in bf16, random weights from seed 0 with the embedding scaled by 0.1,
    through ServingEngine: phase 3's workload (greedy and T 0.7
@@ -203,8 +204,9 @@ phase took.
    torch.profiler (sort, gather and index kernels' shares), and the
    kernel device time of one decode call beside one layer's MoE FFN, its
    dispatch and its expert products (sums under torch.profiler).
-15. Serve xlstm-350m at its published widths cut to 2 of its 12
-   sLSTM/mLSTM pairs (d 1024, 4 heads, vocab 50304; all 12 until slice 9)
+15. Serve xlstm-350m at its published widths cut to 1 of its 12
+   sLSTM/mLSTM pairs (d 1024, 4 heads, vocab 50304; all 12 until slice 9,
+   2 until slice 11)
    in bf16 with f32 carries, random weights from seed
    0 with the embedding scaled by 0.1: phase 3's workload at
    decode_block 8 and 1, bitwise equal; a short run under
@@ -232,8 +234,9 @@ phase took.
    decode block under sync debug mode "error").  tok/s, host syncs per
    token and peak memory per run; minicpm's 16 requests x 16 tokens under
    torch.profiler.
-18. Train musicgen-medium (6 of 48 layers: 4 codebooks, sinusoidal
-   positions, GELU MLP, MHA 24/24), qwen2-vl-2b (4 of 28: M-RoPE over
+18. Train musicgen-medium (3 of 48 layers, 6 until slice 11: 4 codebooks,
+   sinusoidal positions, GELU MLP, MHA 24/24), qwen2-vl-2b (2 of 28, 4
+   until slice 11: M-RoPE over
    "vlm" batches' (3, B, S) positions, H 12/2, dh 128) and stablelm-12b
    (2 of 40: LayerNorm, H 32/8, dh 160, vocab 100352 untied) at their
    published widths, bf16 compute, f32 masters drawn on the card, seq
@@ -277,8 +280,8 @@ phase took.
    relative, the loss under 0.6x its start, rms error under 0.8x free
    fall's.  The CPU sides of (b) and (c) run in one worker process while
    the card works.  Each prints its seconds.
-21. Train granite-moe-1b-a400m (all 24 layers: 32 experts top-8, H
-   16/8), xlstm-350m (1 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
+21. Train granite-moe-1b-a400m (12 of 24 layers since slice 11, all 24
+   before: 32 experts top-8, H 16/8), xlstm-350m (1 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
    (5 of 26 layers: one remat'd (rec, rec, attn) group and the two tail
    recurrent blocks, the loss in chunks of 256 positions) at their
    published widths in phase 18's setting: bf16 compute, f32 masters
@@ -317,6 +320,27 @@ phase took.
    kernels line.  Then the analytic roofline (`repro_torch.analysis`) of
    phase 5's train step priced at H100_SXM beside phase 5's measured
    fused-block step time, and useful_flops / (step time x peak).
+24. The port on a device mesh (slice 11).  (a) A one-rank NCCL mesh
+   (1, 1, 1) on the card, the demo LM at full width (seq 1024, batch 8,
+   bf16) under deterministic algorithms: two steps of
+   make_sharded_train_step equal make_train_step bitwise (losses and
+   every state leaf, gathered), B3 launched 24 times a step through the
+   DTensor path (local_map); one make_diloco_round(mesh=, compress="int8")
+   round (2 pods x H 2, supervised, screens) equals the unmeshed round
+   bitwise; the wire hop alone (`_wire_shard_hop`) under the collective
+   counter issues two NCCL all-gathers per wire leaf, s8 and f32 only.
+   (b) `repro_torch.launch.dryrun --outer-sync` for none, int8 and top-k
+   with --device cuda: rank 0 of the (2, 16, 16) mesh on a fake group of
+   512 ranks, its shards on the card; per-rank bytes by op and dtype
+   equal the reference's checked-in dry run, and the per-pod payload
+   passes --check against the per-pod prediction (like for like).  (c)
+   stablelm-12b train_4k at TRAIN_MICROBATCHES 2 on a fake (16, 16)
+   group: the fake-mode estimate (MemTracker, FLOPs, collectives), then
+   rank 0's program for real on the card (B3's dh-160 instance on 2 of
+   32 query heads, the KV heads replicated): max_memory_allocated beside
+   the estimate and their ratio, FLOPs per rank beside the analytic
+   roofline priced at H100_SXM, and B3 launches (2 x 40 layers x 2
+   microbatches).  Its B3 launches count into the kernels line.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -330,8 +354,9 @@ dh-64 row phases 3, 9, 11, 12 and 23; B2's phases 3 and 11; B3's phases
 rows phase 14; the `_mha`, `_dh160`, `_dh128` and `_h40` rows phase 17's
 minicpm-2b, stablelm-12b, command-r-35b and qwen2.5-32b runs; the new B3
 rows phase 18; `flash_attention_h16` and `rglru_scan_bwd` phase 21, whose
-B4 forwards add to the `rglru_scan` row), errors, times and bounds;
-B4's rows also name their copy path.
+B4 forwards add to the `rglru_scan` row; phase 24a's B3 launches add
+to `flash_attention`, 24c's to `flash_attention_dh160`), errors, times
+and bounds; B4's rows also name their copy path.
 """
 import gc
 import json
@@ -2700,9 +2725,10 @@ def moe_serve_phase(torch):
 # serves xlstm-350m at 2 of its 12 sLSTM/mLSTM pairs: its prefill runs
 # the decode cell per position, ~25 ms of host a cell at all 12 pairs, so
 # the phase took 101.5-146.3 s at full depth.  Phase 14 serves
-# granite-moe-1b-a400m at 12 of its 24 layers.
-XLSTM_SERVE_LAYERS = 4
-MOE_SERVE_LAYERS = 12
+# granite-moe-1b-a400m at 6 of its 24 layers.  Both halved again in slice 11
+# to make room for phase 24.
+XLSTM_SERVE_LAYERS = 2         # 4 until slice 11 (the run's time)
+MOE_SERVE_LAYERS = 6           # 12 until slice 11 (the run's time)
 
 
 def xlstm_serve_phase(torch):
@@ -2933,11 +2959,11 @@ def family_paths(torch):
     """Phases 14-16.  Returns (B1 launches, B2 launches) of phase 14."""
     gc.collect()             # earlier phases' engines sit in cycles
     torch.cuda.empty_cache()
-    phase("phase 14: serve granite-moe-1b-a400m (published widths, 12 of "
+    phase("phase 14: serve granite-moe-1b-a400m (published widths, 6 of "
           "24 layers, bf16, H 16/8, 32 experts top-8)")
     launches = moe_serve_phase(torch)
     torch.cuda.empty_cache()
-    phase("phase 15: serve xlstm-350m (published widths, 2 of 12 pairs, "
+    phase("phase 15: serve xlstm-350m (published widths, 1 of 12 pairs, "
           "bf16, f32 carries), "
           "engine and 3-pod plane")
     xlstm_serve_phase(torch)
@@ -3036,9 +3062,9 @@ def branch_serve_phase(torch, arch):
 # stablelm-12b at 2 of 40 layers (1.58B params): f32 AdamW holds old and
 # new state at once (~30 bytes a parameter) beside (8, 1024, 100352) f32
 # logits, so 4 layers (2.14B) would not leave room on one 80 GB card;
-# qwen2-vl-2b at 4 of 28 and musicgen-medium at 6 of 48 (8 and 12 until
-# slice 9: cut for the script's time limit)
-BRANCH_TRAIN = {"qwen2-vl-2b": 4, "musicgen-medium": 6, "stablelm-12b": 2}
+# qwen2-vl-2b at 2 of 28 and musicgen-medium at 3 of 48 (8 and 12 until
+# slice 9, 4 and 6 until slice 11: cut for the script's time limit)
+BRANCH_TRAIN = {"qwen2-vl-2b": 2, "musicgen-medium": 3, "stablelm-12b": 2}
 
 
 def branch_train_phase(torch, arch):
@@ -3051,12 +3077,12 @@ def branch_train_phase(torch, arch):
                            {"B3": 2 * cfg.n_layers * 8})["B3"]
 
 
-def train_cut_phase(torch, arch, cfg, kernels, want):
+def train_cut_phase(torch, arch, cfg, kernels, want, steps=8):
     """Phases 18 and 21, one config `cfg` (published widths, cut in
     depth): seq 1024, batch 8, the port's SyntheticLM of the arch's kind,
     random f32 masters drawn on the card from seed 0, bf16 compute;
-    FaultTolerantTrainer.run_fused for 8 steps (one drain) and run for 8
-    from the same state (drawn anew from the seed for each run, so no
+    FaultTolerantTrainer.run_fused for `steps` steps (one drain) and run
+    for as many from the same state (drawn anew from the seed for each run, so no
     third copy of the state sits beside a step's old and new), bitwise
     equal.  `kernels` maps a label to a kernel wrapper whose launches
     each run must make exactly `want[label]` of.  Returns {label:
@@ -3073,7 +3099,7 @@ def train_cut_phase(torch, arch, cfg, kernels, want):
     full = registry.get_config(arch)
     fns = registry.model_fns(cfg)
     kind = registry.input_kind(arch)
-    steps, k, seq, batch = 8, 8, 1024, 8
+    k, seq, batch = steps, 1024, 8
     tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3),
                        schedule=registry.lr_schedule(arch), warmup_steps=2,
                        total_steps=steps)
@@ -3299,17 +3325,21 @@ def branch_paths(torch):
 
 
 # phase 21's configs: arch -> (layers kept, config overrides).
-# granite-moe-1b-a400m at its full 24 layers (1.335B params: f32 AdamW
-# state, old and new, and remat activations peak near 42 GB); xlstm-350m at
+# granite-moe-1b-a400m at 12 of its 24 layers (all 24 until phase 24
+# came: 1.335B params, f32 AdamW state, old and new, and remat
+# activations peaked near 42 GB; cut for the run's time); xlstm-350m at
 # 1 of 12 sLSTM/mLSTM pairs (the sLSTM is a Python loop over the 1024
 # positions: host-bound, 6.3-8.7 s a step at 2 pairs, the longest part
 # of a whole run); recurrentgemma-2b at 5
 # of 26 layers, one (rec, rec, attn) group under remat and the two tail
 # recurrent blocks without, with the loss in chunks of 256 positions
 # ((8, 1024, 256000) f32 logits would be 8.4 GB)
-FAMILY_TRAIN = {"granite-moe-1b-a400m": (24, {}),
+FAMILY_TRAIN = {"granite-moe-1b-a400m": (12, {}),
                 "xlstm-350m": (2, {}),
                 "recurrentgemma-2b": (5, {"loss_chunk": 256})}
+# steps a run (8 unless named): xlstm-350m 4 since slice 11, for the run's
+# time (its sLSTM loop is the slowest step of the script)
+FAMILY_STEPS = {"xlstm-350m": 4}
 
 
 def family_launches(cfg, seq, steps):
@@ -3505,8 +3535,9 @@ def family_train_paths(torch):
         for arch, (layers, over) in FAMILY_TRAIN.items():
             t0 = time.perf_counter()
             cfg = registry.get_config(arch, n_layers=layers, **over)
+            steps = FAMILY_STEPS.get(arch, 8)
             got = train_cut_phase(torch, arch, cfg, kernels,
-                                  family_launches(cfg, 1024, 8))
+                                  family_launches(cfg, 1024, steps), steps)
             for n, c in got.items():
                 total[n] += c
             gc.collect()
@@ -4178,6 +4209,285 @@ def paper_paths(torch, block_s, smi):
 PAPER_TITLE = ("phase 23: the paper's entries and the five examples on the "
                "card; the analytic roofline of phase 5's step")
 
+MESH_TITLE = ("phase 24: the port on a device mesh: a one-rank NCCL mesh, "
+              "the outer sync at (2, 16, 16) and stablelm-12b train_4k at "
+              "(16, 16) on fake groups, rank 0 on the card")
+
+# the reference's checked-in dry run of the demo LM's outer sync
+# (benchmarks/results/dryrun/diloco_outer_suncatcher-lm-100m_*_multi.json):
+# per-rank bytes by op and dtype
+OUTER_SYNC_BYTES = {
+    "none": {"all-reduce": {"f32": 1649664}},
+    "int8": {"all-gather": {"s8": 824832, "f32": 12888}},
+    "topk": {"all-gather": {"f32": 32968, "s32": 32968}},
+}
+
+
+def mesh_step_phase(torch):
+    """24a: the one-rank NCCL mesh.  Returns B3's launches through the
+    sharded step."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.distributed.compression import wire_format_for
+    from repro_torch.distributed.hints import on_mesh
+    from repro_torch.distributed.sharding import (gather_full,
+                                                  param_shapes, param_specs)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import registry
+    from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
+                                   SyntheticLM, TrainConfig, diloco_init,
+                                   init_train_state, make_diloco_round,
+                                   make_sharded_train_step, make_train_step,
+                                   outer_step, shard_diloco_state)
+    from repro_torch.train.tree import tree_leaves, tree_paths
+    dev = torch.device("cuda")
+    meshes.init_process_group("cuda")
+    try:
+        mesh = meshes.make_test_mesh(device_type="cuda")
+        check(dist.get_backend() == "nccl" and tuple(mesh.shape) ==
+              (1, 1, 1), f"not a one-rank nccl mesh: {dist.get_backend()} "
+              f"{tuple(mesh.shape)}")
+        print(f"  mesh {tuple(mesh.shape)} {dist.get_backend()} "
+              f"{mesh.mesh_dim_names}", flush=True)
+        cfg = registry.get_config("suncatcher-lm-100m")
+        fns = registry.model_fns(cfg)
+        seq, batch = 1024, 8
+        tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=1,
+                           total_steps=16)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=batch,
+                                      seed=0), dev)
+        state0 = init_train_state(torch.Generator().manual_seed(0), cfg,
+                                  fns, dev)
+
+        def leaves_equal(a, b):
+            pa, pb = tree_paths(a), tree_paths(b)
+            return list(pa) == list(pb) and all(
+                pa[k].dtype == pb[k].dtype and torch.equal(pa[k], pb[k])
+                for k in pa)
+
+        plain = make_train_step(cfg, fns, tcfg)
+        sharded = make_sharded_train_step(cfg, fns, tcfg, mesh)
+        a, b, la, lb, secs = state0, state0, [], [], []
+        for i in range(2):
+            a, ma = plain(a, data.batch_at(i))
+            la.append(ma["loss"])
+        flash_attention.launches = 0
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b, mb = sharded(b, data.batch_at(i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            lb.append(mb["loss"])
+        launches = flash_attention.launches
+        print(f"  sharded step: {secs[0]:.2f} s (first, DTensor sharding "
+              f"propagation included), {secs[1]:.3f} s (second) | losses "
+              f"{[round(x.item(), 6) for x in lb]} | B3 launches "
+              f"{launches}", flush=True)
+        check(launches == 2 * 2 * cfg.n_layers,
+              f"B3 launched {launches} times through the DTensor path, "
+              f"want 24 a step")
+        check(all(torch.equal(x, y) for x, y in zip(la, lb)),
+              f"sharded losses {lb} != plain {la}")
+        check(leaves_equal(a, gather_full(b)),
+              "the sharded step's state differs from the plain step's")
+        print("  make_sharded_train_step == make_train_step: 2 steps, "
+              "losses and every state leaf bitwise", flush=True)
+
+        dcfg = DiLoCoConfig(n_pods=2, inner_steps=2)
+        params = fns.init(torch.Generator().manual_seed(1), cfg, dev)
+        d0 = diloco_init(params, dcfg, compress="int8", screen_window=8)
+        steps = torch.arange(4, device=dev).reshape(2, 2)
+        mask = torch.ones(2, device=dev)
+        thr = torch.tensor([3.0, 10.0], device=dev)
+        kw = dict(compress="int8", data=data, screen_window=8,
+                  supervise=True)
+        r0 = make_diloco_round(cfg, fns, tcfg, dcfg, **kw)
+        r1 = make_diloco_round(cfg, fns, tcfg, dcfg, mesh=mesh, **kw)
+        x, mx = r0(d0, steps, mask, thr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, my = r1(d0, steps, mask, thr)
+        torch.cuda.synchronize()
+        t_round = time.perf_counter() - t0
+        fy = gather_full(y)
+        bad = [k for k in ("global_params", "outer_m", "pod_params",
+                           "pod_opt", "pod_ef", "screen", "step")
+               if not leaves_equal(x[k], fy[k])]
+        check(not bad, f"the mesh round differs from the unmeshed at {bad}")
+        check(all(torch.equal(mx[k], my[k]) for k in mx),
+              "the mesh round's metrics differ")
+        print(f"  make_diloco_round(mesh=, int8) == unmeshed: 2 pods x H 2, "
+              f"state and metrics bitwise ({t_round:.2f} s)", flush=True)
+
+        fmt = wire_format_for(param_shapes(cfg), param_specs(cfg), mesh,
+                              dcfg.n_pods, method="int8")
+        check(fmt.mesh is mesh, "the wire format did not take the mesh")
+        ds = shard_diloco_state(d0, cfg, mesh)
+        with on_mesh(mesh), CollectiveCounter() as cc:
+            outer_step(ds, dcfg, wire=fmt)
+        torch.cuda.synchronize()
+        coll = cc.collective_bytes()
+        n_leaves = len(tree_leaves(params))
+        print(f"  wire hop on NCCL: {coll['counts']} | bytes by dtype "
+              f"{coll['bytes_by_dtype']}", flush=True)
+        check(coll["counts"] == {"all-gather": 2 * n_leaves},
+              f"want two all-gathers per wire leaf ({2 * n_leaves}), got "
+              f"{coll['counts']}")
+        check(set(coll["bytes_by_dtype"]["all-gather"]) == {"s8", "f32"},
+              "the hop gathered other dtypes than the int8 payload")
+        del a, b, x, y, fy, ds, d0, params, state0
+    finally:
+        meshes.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_local_check(torch):
+    """B3 `_dh160` at the local shape 24c's step gives it on a rank of
+    (16, 16): q (8, 4096, 2, 160), the rank's 2 of 32 query heads; k and
+    v one KV head narrowed out of the 8 replicated ones, as
+    `heads_local_map` narrows them (Hkv 1, a position stride of 8 x 160).
+    Rank 0 reads KV head 0, rank 15 head 7 (the largest offset).  Against
+    the plain version at the bf16 limit; returns the max abs err."""
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4096)
+    q = torch.randn(8, 4096, 2, 160, generator=g).to(dev, torch.bfloat16)
+    kv = [torch.randn(8, 4096, 8, 160, generator=g).to(dev, torch.bfloat16)
+          for _ in range(2)]
+    worst = 0.0
+    for kvh in (0, 7):
+        k, v = (t.narrow(2, kvh, 1) for t in kv)
+        check(not k.is_contiguous() and k.stride(1) == 8 * 160,
+              f"k is not the narrowed view: strides {k.stride()}")
+        out = flash_attention(q, k, v, causal=True)
+        again = flash_attention(q, k, v, causal=True)
+        ref = attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True
+                                  ).transpose(1, 2)
+        torch.cuda.synchronize()
+        err, share = plain_close(out, ref, "bfloat16")
+        tag = (f"B3 at 24c's local shape B=8 H=2 Hkv=1 (KV head {kvh} of 8, "
+               f"narrowed) S=4096 dh=160 bfloat16 causal")
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+        check(share <= 1, f"{tag}: max abs err {err}, {share:.3f} of its "
+              f"limit")
+        check(torch.equal(out, again), f"{tag}: two calls differ")
+        print(f"  {tag}: max abs err {err:.3e} ({share:.3f} of the limit); "
+              f"two calls bitwise equal", flush=True)
+        worst = max(worst, err)
+    del q, kv, k, v, out, again, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def mesh_dryrun_phase(torch, smi, out_dir, estimate):
+    """24b and 24c.  `estimate` is the future of the fake-mode dry run of
+    24c's cell, run in a process of its own meanwhile.  Returns B3's
+    dh-160 launches in 24c's card run and its max abs err at 24c's local
+    shape."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun
+    for mode in ("none", "int8", "topk"):
+        r = dryrun.run_outer_sync_cell(compress=mode, device="cuda",
+                                       out_dir=out_dir)
+        dryrun.check_outer_sync(r)
+        check(r["collectives"]["bytes_by_dtype"] == OUTER_SYNC_BYTES[mode],
+              f"{mode}: per-rank bytes {r['collectives']['bytes_by_dtype']}"
+              f" != the reference's {OUTER_SYNC_BYTES[mode]}")
+        print(f"  outer sync {mode}: per rank {r['collectives']['bytes']} "
+              f"B by dtype {r['collectives']['bytes_by_dtype']} | per pod "
+              f"{r['per_pod_wire_bytes']} B vs predicted "
+              f"{r['predicted_outer_wire_bytes_per_pod']} B = "
+              f"{r['per_pod_over_predicted']}x (budget "
+              f"{r['budget_factor']}x, --check passes) | "
+              f"{r['seconds']:.2f} s ({r['step_seconds']:.3f} s the hop) | "
+              f"{smi}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    err = flash_local_check(torch)
+    t1 = time.perf_counter()
+    flash_attention.launches = 0
+    real = dryrun.run_cell("stablelm-12b", "train_4k", False, out_dir,
+                           device="cuda", chip="h100", verbose=False)
+    launches = flash_attention.launches
+    t2 = time.perf_counter()
+    (rc, stdout, stderr, est_s), = estimate.result()
+    check(rc == 0, f"the fake-mode dry run of stablelm-12b train_4k "
+          f"failed ({rc}):\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    with open(os.path.join(out_dir, "fake",
+                           "stablelm-12b_train_4k_single.json")) as f:
+        est = json.load(f)
+    print(f"  24c: the card run took {t2 - t1:.1f} s (its step "
+          f"{real['seconds']:.2f} s); the fake-mode estimate, in a process "
+          f"of its own since phase 24 began, {est_s:.1f} s, waited on "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    want = 2 * 40 * 2
+    a = real["analytic"]
+    ratio = real["own_peak_bytes"] / est["memory_peak_bytes"]
+    print(f"  stablelm-12b train_4k, rank 0 of (16, 16): "
+          f"max_memory_allocated {real['max_memory_allocated'] / 2**30:.2f}"
+          f" GiB, the step's own peak (its state included, what earlier "
+          f"phases left out) {real['own_peak_bytes'] / 2**30:.2f} GiB vs "
+          f"the fake-mode MemTracker estimate "
+          f"{est['memory_peak_bytes'] / 2**30:.2f} GiB (ratio {ratio:.3f}; "
+          f"by category {est['memory_peak']}) | FLOPs per rank "
+          f"{est['flops']['total'] / 1e12:.2f} T (aten "
+          f"{est['flops']['aten'] / 1e12:.2f} T + kernels "
+          f"{est['flops']['kernels'] / 1e12:.2f} T) vs analytic "
+          f"{a['flops_per_device'] / 1e12:.2f} T | collective wire "
+          f"{est['collectives']['wire_bytes'] / 2**30:.1f} GiB/rank | "
+          f"step {real['seconds']:.2f} s on the card vs the analytic "
+          f"roofline {a['step_time_s']:.3f} s ({a['dominant']}) at "
+          f"H100_SXM | B3 launches {launches} | {smi}", flush=True)
+    check(launches == want, f"B3 launched {launches} times in stablelm's "
+          f"rank-0 step, want {want}")
+    check(est["flops"]["per_kernel"]["flash_attention"]["calls"] == want,
+          "the fake run counted another number of B3 calls")
+    # the estimate counts the rank's own program only (the dry run's
+    # MemTracker leaves DTensor's global-shape inference out on every
+    # torch version); the card's peak includes the allocator's rounding
+    check(0.8 <= ratio <= 1.25, f"the card's own peak is {ratio:.3f}x the "
+          f"fake-mode estimate, outside 0.8-1.25x")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def mesh_paths(torch, smi):
+    """Phase 24; returns {"B3": 24a's launches, "B3_dh160": 24c's,
+    "B3_dh160_err": B3's max abs err at 24c's local shape}.  24c's
+    fake-mode estimate (host work only, ~30 s) runs in a process of its
+    own beside 24a and 24b."""
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    est_run = ("-m", "repro_torch.launch.dryrun", "--arch", "stablelm-12b",
+               "--shape", "train_4k", "--mesh", "single", "--chip", "h100",
+               "--out", os.path.join(out_dir, "fake"))
+    with ThreadPoolExecutor(1) as threads:
+        estimate = threads.submit(_launchers, [est_run], 300)
+        print("  24a: one-rank NCCL mesh", flush=True)
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            b3 = mesh_step_phase(torch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+        print("  24b/24c: fake process groups, rank 0 on the card",
+              flush=True)
+        t0 = time.perf_counter()
+        b3_dh160, err = mesh_dryrun_phase(torch, smi, out_dir, estimate)
+        print(f"  24b/24c took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return {"B3": b3, "B3_dh160": b3_dh160, "B3_dh160_err": err}
+
 
 def main(argv):
     import torch
@@ -4189,12 +4499,13 @@ def main(argv):
     only_slice8 = argv == ["--phase", "20"]
     only_family_train = argv == ["--phase", "21"]
     only_paper = argv == ["--phase", "23"]
+    only_mesh = argv == ["--phase", "24"]
     if argv and not (only_2c or only_new or only_plane or only_family
                      or only_branch or only_slice8 or only_family_train
-                     or only_paper):
+                     or only_paper or only_mesh):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
               "--phase 14 | --phase 17 | --phase 20 | --phase 21 | "
-              "--phase 23]", file=sys.stderr)
+              "--phase 23 | --phase 24]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4291,6 +4602,12 @@ def main(argv):
         phase()
         print("phase 23 alone: no result line")
         return 0
+    if only_mesh:
+        phase(MESH_TITLE)
+        print(f"  launches: {mesh_paths(torch, smi)}", flush=True)
+        phase()
+        print("phase 24 alone: no result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -4384,6 +4701,16 @@ def main(argv):
     paper = paper_paths(torch, block_s, smi)
     rows[0]["launches"] += paper["B1"]       # serve_batch (dh 16 -> 64)
     rows[2]["launches"] += paper["B3"]       # diloco_traffic, the examples
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(MESH_TITLE)
+    mesh = mesh_paths(torch, smi)
+    rows[2]["launches"] += mesh["B3"]        # 24a, through local_map
+    named = {r["name"]: r for r in rows}
+    named["flash_attention_dh160"]["launches"] += mesh["B3_dh160"]
+    named["flash_attention_dh160"]["max_abs_err"] = max(
+        named["flash_attention_dh160"]["max_abs_err"], mesh["B3_dh160_err"])
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")
 

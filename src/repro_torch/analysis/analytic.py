@@ -130,8 +130,8 @@ def expected_collective_bytes(cfg, kind: str, batch: int, seq: int, *,
                               data_shards: int, model_shards: int,
                               microbatches: int = 1) -> float:
     """Design-intent per-device wire bytes/step for the sharding scheme
-    the paper's pods use (Megatron-SP + TP + FSDP), which the port does not
-    shard yet (ROADMAP A3b).
+    the paper's pods use (Megatron-SP + TP + FSDP); the port's dry run
+    (`launch/dryrun.py`) measures its own per-rank collectives beside it.
 
     Train, per layer: 2 SP zones x (all-gather(x) fwd + reduce-scatter(dx)
     bwd + remat re-gather) ~ 6 stream-sized transfers, + 2 output
@@ -162,8 +162,8 @@ def analytic_roofline(cfg, kind: str, batch: int, seq: int, *,
     """Three terms in seconds (per device = per step, SPMD).  The collective
     term prices `expected_collective_bytes`.  `wire_bytes_per_device` is a
     measured wire byte count per device, priced at the same link rate under
-    the reference's key `collective_s_xla_cpu`; the port measures none
-    until its dry run (ROADMAP A7), so it defaults to 0."""
+    the reference's key `collective_s_xla_cpu` (the dry run passes its
+    counted wire bytes; 0 where nothing was measured)."""
     flops_dev = model_flops(cfg, kind, batch, seq) / chips
     bytes_dev = hbm_bytes_per_device(cfg, kind, batch, seq,
                                      data_shards=data_shards,

@@ -5,8 +5,9 @@
     collective = wire_bytes_per_device / link_bw
 
 The per-device FLOPs and bytes come from a cost model (the reference reads
-them from a compiled dry run's `cost_analysis()`; the port has no dry run
-yet, ROADMAP A7) or from `analytic.py`.  The collective term uses the
+them from a compiled dry run's `cost_analysis()`; the port's dry run
+counts them on a fake process group, `launch/dryrun.py`) or from
+`analytic.py`.  The collective term uses the
 chip's link rate for the intra-pod axes; the `pod` hop instead has the
 FSO ISL budget of `repro_torch.core.isl` (1.2 TB/s per satellite at the
 formation distances).

@@ -1,2 +1,3 @@
-"""Cross-pod communication of the port: the outer-sync delta codecs.  The
-collectives over a pod group of cards wait for ROADMAP A3b."""
+"""Cross-pod communication of the port: the outer-sync delta codecs and
+their wire format, the spec rules of every architecture on the
+production meshes, and the activation hints that place DTensors."""

@@ -23,14 +23,15 @@ live on, bitwise the reference's on the same inputs: the int8 scale is
 `absmax / 127` and the quantizer divides by it (no reciprocal multiply),
 rounding half to even as `jnp.round` does; top-k orders equal magnitudes
 lower index first, as `jax.lax.top_k` does (`torch.topk` promises no
-order among ties, so the selection is a stable sort).  The wire format's
-`mesh` is always None in the port: the shard-map hop over a pod group of
-cards is not ported (ROADMAP A3b).
+order among ties, so the selection is a stable sort).  A wire format
+with a `mesh` (from `wire_format_for`) runs as the hop over the mesh's
+"pod" process group (`train/diloco.py::_wire_shard_hop`); without one,
+the same layout runs as the pod-local simulation.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -109,15 +110,58 @@ class WireLeaf:
 @dataclass(frozen=True)
 class WireFormat:
     """The outer-sync wire contract: method + per-leaf lane layout (a tree
-    of `WireLeaf`s matching the params).  `mesh` is always None in the
-    port: the layout runs as the pod-local simulated hop, bitwise the
-    reference's simulated hop."""
+    of `WireLeaf`s matching the params).
+
+    With `mesh` (a DeviceMesh with a "pod" axis) the hop runs over the
+    mesh: each rank quantizes its own tile and the compressed payload is
+    all-gathered over the "pod" group.  With mesh=None the same layout
+    runs as the pod-local simulation, bitwise the same result."""
     method: str                 # "int8" | "topk"
     layout: Any
     n_pods: int
     mesh: Any = None
     block: int = 256
     topk_frac: float = 0.01
+
+    def simulated(self) -> "WireFormat":
+        return replace(self, mesh=None)
+
+
+def is_wire_leaf(x) -> bool:
+    return isinstance(x, WireLeaf)
+
+
+def wire_format_for(params, pspecs, mesh, n_pods: int, *, method: str,
+                    block: int = 256, topk_frac: float = 0.01) -> WireFormat:
+    """The shard-aligned WireFormat of the param specs on `mesh` (a
+    DeviceMesh, or anything `sharding.axis_sizes` reads).
+
+    Lane counts come from the sanitized specs (axes that do not divide
+    are dropped, as the state's placements drop them), so the lanes are
+    exactly the tiles each rank holds.  If the mesh cannot host the pod
+    axis (no "pod" axis, or n_pods not a multiple of its size), or is not
+    a DeviceMesh, the format is the simulated hop (mesh=None) with the
+    same layout.  `params`: tensors or `sharding.SDS` leaves."""
+    from repro_torch.distributed.sharding import axis_sizes, sanitize_specs
+    specs = sanitize_specs(pspecs, params, mesh)
+    sizes = axis_sizes(mesh)
+
+    def leaf(spec, x):
+        counts = []
+        for ax in spec:
+            if ax is None:
+                counts.append(1)
+                continue
+            axs = ax if isinstance(ax, tuple) else (ax,)
+            counts.append(math.prod(sizes[a] for a in axs))
+        return WireLeaf(counts=tuple(counts), spec=tuple(spec))
+
+    layout = tree_map(lambda s, x: leaf(s, x), specs, params)
+    pod_ok = ("pod" in sizes and n_pods % sizes["pod"] == 0
+              and hasattr(mesh, "mesh_dim_names"))
+    return WireFormat(method=method, layout=layout, n_pods=n_pods,
+                      mesh=mesh if pod_ok else None, block=block,
+                      topk_frac=topk_frac)
 
 
 def tiles_of(x, counts):

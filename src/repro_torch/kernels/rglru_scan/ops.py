@@ -17,16 +17,27 @@ are the VJP of the same recurrence.  Where x is not f32 and a gradient is
 wanted, the forward scans the exact f32 widening and rounds its output
 once, which is what the kernel's own bf16 store gives, so the saved carry
 is the unrounded one.
+
+A DTensor goes through `_boundary.same_local_map` (each rank's channels:
+the recurrence is elementwise over D); a fake tensor launches nothing and
+reports the kernel's FLOPs and bytes (`_boundary.COUNTS["rglru_scan"]`,
+`["rglru_scan_bwd"]`).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import _boundary
 from . import kernel
 from .ref import rglru_scan_backward_reference, rglru_scan_reference
 
 
 def _scan(a, x):
+    if _boundary.is_fake(x):
+        out = _boundary.fake_like(x, x.shape)
+        _boundary.report("rglru_scan", 2 * x.numel(),
+                         _boundary.nbytes(a, x, out))
+        return out
     if x.device.type == "cpu":
         return rglru_scan_reference(a, x)
     return kernel.rglru_scan_fwd(a.contiguous(), x.contiguous())
@@ -45,6 +56,12 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, h = ctx.saved_tensors
+        if _boundary.is_fake(g):
+            da, dx = (_boundary.fake_like(a, a.shape),
+                      _boundary.fake_like(g, g.shape))
+            _boundary.report("rglru_scan_bwd", 4 * g.numel(),
+                             _boundary.nbytes(a, h, g, da, dx))
+            return da, dx
         if g.device.type == "cpu":
             return rglru_scan_backward_reference(a, h, g)
         return kernel.rglru_scan_bwd(a.contiguous(), h, g.contiguous())
@@ -53,4 +70,8 @@ class _Scan(torch.autograd.Function):
 def rglru_scan(a, x):
     """h_t = a_t h_{t-1} + x_t along axis 1, h0 = 0.  a, x (B, S, D);
     returns x's dtype."""
+    if _boundary.is_dtensor(x):
+        # placed as x: a (computed beside x) follows it
+        return _boundary.same_local_map(lambda xl, al: _Scan.apply(al, xl),
+                                        x, a)
     return _Scan.apply(a, x)

@@ -30,6 +30,15 @@ DiLoCoSupervisor.
       --arch granite-moe-1b-a400m --diloco-pods 2 --inner-steps 8 \
       --compress int8
 
+  # on a device mesh: "test" is the one-rank mesh (1, 1, 1) (nccl on the
+  # card, gloo with --device cpu); "single" / "multi" are the (16, 16) and
+  # (2, 16, 16) production meshes, whose 256 / 512 ranks torchrun starts
+  # (with fewer, the launcher raises naming both sizes)
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh test \
+      --device cpu --steps 8
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --mesh multi ...
+
 It runs on the CUDA card unless `--device cpu` is given; with no card and
 the default device it exits with an error rather than fall back.  Weights
 are random, from a seeded generator; data is the synthetic stream of
@@ -52,13 +61,15 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
                                                    rglru_scan_fwd)
 from repro_torch.models import registry
+from repro_torch.launch import mesh as meshes
 from repro_torch.train import (AdamWConfig, DataConfig, DiLoCoConfig,
                                DiLoCoSupervisor, FaultTolerantTrainer,
                                FTConfig, SyntheticLM, TrainConfig,
                                diloco_init, init_train_state,
                                isl_bytes_per_step, make_diloco_round,
-                               make_fused_steps, make_train_step,
-                               outer_wire_bytes)
+                               make_fused_steps, make_sharded_fused_steps,
+                               make_sharded_train_step, make_train_step,
+                               outer_wire_bytes, shard_train_state)
 from repro_torch.train.tree import tree_leaves
 
 def _launches():
@@ -73,13 +84,8 @@ def _launch_line(before) -> str:
             f"launches: forward {fwd} backward {bwd}")
 
 
-NOT_PORTED = ("device meshes (--mesh, ROADMAP A3b) of the JAX launcher "
-              "are not ported yet and not accepted")
-
-
 def build_parser():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
-                                 epilog=NOT_PORTED)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="suncatcher-lm-100m",
                     help=f"arch id; ported: {registry.ARCH_IDS}")
     ap.add_argument("--steps", type=int, default=50)
@@ -126,10 +132,16 @@ def build_parser():
                          "(exercises the deterministic replay path)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "test", "single", "multi"],
+                    help="train on a device mesh: test = the one-rank "
+                         "(1, 1, 1) mesh; single / multi = the (16, 16) / "
+                         "(2, 16, 16) production meshes over torchrun's "
+                         "ranks (default none: one device, no group)")
     return ap
 
 
-def _run_diloco(args, cfg, fns, tcfg, data, device):
+def _run_diloco(args, cfg, fns, tcfg, data, device, mesh=None):
     """DiLoCo rounds under the DiLoCoSupervisor: per-pod rollback on the
     device, replicated async checkpoints, and (with --constellation) pod
     masks derived from the orbital/ISL/radiation stack."""
@@ -142,7 +154,7 @@ def _run_diloco(args, cfg, fns, tcfg, data, device):
                           screen_window=window)
     rnd = make_diloco_round(cfg, fns, tcfg, dcfg, compress=compress,
                             data=data, screen_window=window,
-                            supervise=True)
+                            supervise=True, mesh=mesh)
     wire = outer_wire_bytes(params, compress)
 
     liveness = None
@@ -204,6 +216,13 @@ def _run_diloco(args, cfg, fns, tcfg, data, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    try:
+        _main(args)
+    finally:
+        meshes.destroy()
+
+
+def _main(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is "
@@ -225,8 +244,15 @@ def main(argv=None):
                                   n_codebooks=getattr(cfg, "n_codebooks", 1),
                                   kind=registry.input_kind(args.arch)),
                        device)
+    try:
+        mesh = meshes.mesh_for(args.mesh, device.type)
+    except ValueError as e:          # a mesh the group cannot hold
+        raise SystemExit(f"--mesh {args.mesh}: {e}")
+    if mesh is not None:
+        print(f"mesh {tuple(mesh.shape)} {meshes.backend_for(device.type)} "
+              f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))}")
     if args.diloco_pods > 0:
-        _run_diloco(args, cfg, fns, tcfg, data, device)
+        _run_diloco(args, cfg, fns, tcfg, data, device, mesh)
         return
     state = init_train_state(torch.Generator().manual_seed(0), cfg, fns,
                              device)
@@ -235,12 +261,20 @@ def main(argv=None):
         injector = SDCInjector(RadiationEnvironment(), n_chips=81 * 256,
                                step_time_s=1.0,
                                rate_multiplier=args.sdc_rate_multiplier)
-    fused = (make_fused_steps(cfg, fns, tcfg)
-             if args.drain_every > 1 and injector is None else None)
+    use_fused = args.drain_every > 1 and injector is None
+    if mesh is None:
+        step = make_train_step(cfg, fns, tcfg)
+        fused = make_fused_steps(cfg, fns, tcfg) if use_fused else None
+    else:
+        state = shard_train_state(state, cfg, mesh)
+        step = make_sharded_train_step(cfg, fns, tcfg, mesh)
+        fused = (make_sharded_fused_steps(cfg, fns, tcfg, mesh,
+                                          drain_every=args.drain_every)
+                 if use_fused else None)
     launches0 = _launches()
     with tempfile.TemporaryDirectory() as d:
         trainer = FaultTolerantTrainer(
-            make_train_step(cfg, fns, tcfg), state, data,
+            step, state, data,
             FTConfig(checkpoint_dirs=(d,), checkpoint_every=20,
                      drain_every=args.drain_every),
             injector=injector, fused_steps=fused)

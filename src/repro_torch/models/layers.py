@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hints import is_dtensor
+from repro_torch.kernels._boundary import heads_local_map
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -200,6 +202,13 @@ def attention(q, k, v, *, impl: str = "ref", page_table=None,
     if window is None and kv_len is None and isinstance(q_offset, int) \
             and q_offset == 0 and 1 < q.shape[1] == k.shape[1]:
         return flash_attention(q, k, v, causal=causal)
+    if is_dtensor(q):
+        # no kernel takes this call: the plain versions on each rank's
+        # heads (positions and lengths plain, the same on every rank)
+        return heads_local_map(
+            lambda a, b, c: attention(a, b, c, impl=impl, causal=causal,
+                                      window=window, q_offset=q_offset,
+                                      kv_len=kv_len), q, k, v, head_dim=2)
     if impl == "chunked" and q.shape[1] > 1:
         return attention_chunked(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv_len)

@@ -20,11 +20,21 @@ mode "error" on the card):
      ascending expert order, summed one after another in the compute
      dtype, the order in which the reference's scatter-add accumulates
      them.  No atomics, so two calls are bitwise equal.
+
+On a DeviceMesh (DTensor inputs) the dispatch runs under `local_map`
+with the experts local to each rank: the experts shard over "model", the
+tokens over the batch axes, and each rank routes its own tokens, fills
+the slots of its own experts (capacity counted over its own tokens) and
+combines their outputs; the ranks of a "model" group hold partial sums
+that DTensor adds.  On a one-rank mesh that is the plain call.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.hints import (is_dtensor, shard_hint,
+                                          weight_grad_placements)
 
 
 def router_topk(x, w_router, k: int):
@@ -101,12 +111,77 @@ def moe_ffn(x, params, *, num_experts: int, top_k: int,
             capacity_factor: float = 1.25, activation: str = "swiglu"):
     """x (T, D).  params: router (D, E), wi_gate / wi_up (E, D, F),
     wo (E, F, D)."""
+    if is_dtensor(x):
+        return _sharded_moe(x, params, num_experts=num_experts, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            activation=activation)
+    return _moe_local(x, params, num_experts, top_k, capacity_factor,
+                      activation, 0)
+
+
+def _sharded_moe(x, params, *, num_experts, top_k, capacity_factor,
+                 activation):
+    """moe_ffn on DTensors: x placed ("batch", None), the router
+    replicated, the experts on "model" (or replicated where they do not
+    divide it), each rank's dispatch local."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x = shard_hint(x, ("batch", None))
+    router = shard_hint(params["router"], (None, None))
+    experts = {k: shard_hint(params[k], ("model", None, None))
+               for k in ("wi_gate", "wi_up", "wo")}
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    md = names.index("model") if "model" in names else None
+    ep = md is not None and experts["wo"].placements[md] == Shard(0)
+    e_loc = num_experts // mesh.size(md) if ep else num_experts
+    out_pl = [Partial() if (i == md and ep) else p
+              for i, p in enumerate(x.placements)]
+
+    def local(x_l, r_l, wg, wu, wo):
+        e0 = mesh.get_local_rank(md) * e_loc if ep else 0
+        return _moe_local(x_l, {"router": r_l, "wi_gate": wg, "wi_up": wu,
+                                "wo": wo}, num_experts, top_k,
+                          capacity_factor, activation, e0)
+
+    weights = (router, experts["wi_gate"], experts["wi_up"], experts["wo"])
+    grads = [tuple(x.placements)] + [weight_grad_placements(w, x)
+                                     for w in weights]
+    if ep:
+        # a rank's experts see only their own share of x and of the
+        # routing: x's and the router's gradients are partial sums over
+        # the model ranks too
+        grads[:2] = [tuple(Partial() if i == md else p
+                           for i, p in enumerate(g)) for g in grads[:2]]
+    out = local_map(local, out_placements=out_pl,
+                    in_placements=(tuple(x.placements),
+                                   *(tuple(w.placements) for w in weights)),
+                    in_grad_placements=tuple(grads),
+                    device_mesh=mesh, redistribute_inputs=False)(
+        x, router, experts["wi_gate"], experts["wi_up"], experts["wo"])
+    return shard_hint(out, ("batch", None))
+
+
+def _moe_local(x, params, num_experts: int, top_k: int,
+               capacity_factor: float, activation: str, e0: int):
+    """The dispatch over the experts [e0, e0 + E_local) that `params`
+    holds (E_local = its wi_gate's leading dim; all E on one device):
+    routing over all E, the slot table of the local experts, their FFNs,
+    and each token's combine over the local experts' outputs."""
     t, d = x.shape
     e = num_experts
     capacity = capacity_of(t, e, top_k, capacity_factor)
     weights, experts = router_topk(x, params["router"], top_k)  # (T, k)
     slot_token, slot_weight, slot = slot_table(
         experts, weights, t, e, capacity, x.dtype)
+    e_loc = params["wi_gate"].shape[0]
+    if e_loc != e:
+        slot_token = slot_token[e0:e0 + e_loc]
+        slot_weight = slot_weight[e0:e0 + e_loc]
+        lo, hi = e0 * capacity, (e0 + e_loc) * capacity
+        slot = torch.where((slot >= lo) & (slot < hi), slot - lo,
+                           e_loc * capacity)
+    e = e_loc
 
     x_pad = torch.cat([x, x.new_zeros((1, d))])
     xe = x_pad[slot_token]                                      # (E, C, D)

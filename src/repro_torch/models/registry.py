@@ -1,4 +1,4 @@
-"""Architecture registry: --arch <id> -> (config, model functions).
+"""Architecture registry: --arch <id> -> (config, model functions, shapes).
 
 All eleven configs of the reference are registered, in its order: the
 transformer family (dense, MoE, VLM and audio configs), the RG-LRU
@@ -27,6 +27,17 @@ ARCH_IDS = [
     # the paper's own end-to-end demo model
     "suncatcher-lm-100m",
 ]
+
+# The LM shape suite of the dry run: name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# Sub-quadratic archs run long_500k; pure full-attention archs skip it.
+SUBQUADRATIC = {"xlstm-350m", "recurrentgemma-2b"}
 
 # config dataclass -> model module
 _FAMILIES = {
@@ -89,3 +100,16 @@ def lr_schedule(arch: str) -> str:
     """The arch's default LR schedule: "wsd" where its config names it
     (minicpm-2b, as the reference's launcher picks), else "cosine"."""
     return getattr(_config_module(arch), "LR_SCHEDULE", "cosine")
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    """long_500k runs only on the sub-quadratic archs (a quadratic KV
+    cache at 524k tokens is skipped, as in the reference)."""
+    return shape != "long_500k" or arch in SUBQUADRATIC
+
+
+def cells(archs=None):
+    """Every runnable (arch, shape) dry-run cell; by default all archs but
+    the demo LM, in ARCH_IDS order."""
+    archs = archs or [a for a in ARCH_IDS if a != "suncatcher-lm-100m"]
+    return [(a, s) for a in archs for s in SHAPES if shape_applicable(a, s)]

@@ -34,6 +34,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.hints import (embed_rows, gather_fsdp,
+                                          heads_axis, is_dtensor,
+                                          merge_heads, shard_hint,
+                                          split_heads, write_rows)
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 from . import grouped
@@ -179,9 +183,12 @@ def _rec_block(cfg: RGLRUConfig, x, lp, state=None, lens=None):
     (position lens-1: the scan is causal, so pad positions past it never
     touch them); None for a whole sequence without `lens`."""
     b, s, d = x.shape
+    lp = _gather_weights(lp)
     xn = rms_norm(x, lp["norm"])
-    branch = xn @ lp["w_x"]
-    gate = torch.nn.functional.gelu(xn @ lp["w_gate"], approximate="tanh")
+    branch = shard_hint(xn @ lp["w_x"], ("batch", None, "model"))
+    gate = shard_hint(torch.nn.functional.gelu(xn @ lp["w_gate"],
+                                               approximate="tanh"),
+                      ("batch", None, "model"))
 
     # causal depthwise conv1d of width cw, summed in the reference's
     # order 0 + t0 + t1 + ... in the compute dtype
@@ -192,9 +199,11 @@ def _rec_block(cfg: RGLRUConfig, x, lp, state=None, lens=None):
     xc = torch.cat([pad, branch], dim=1)
     conv = sum(xc[:, i:i + s] * w[i] for i in range(cw))
 
-    ri = xn @ lp["w_ri"] + lp["b_ri"]
-    r = torch.sigmoid(ri[..., :d].float())
-    i_g = torch.sigmoid(ri[..., d:].float())
+    ri = shard_hint(xn @ lp["w_ri"] + lp["b_ri"], ("batch", None, None))
+    r = shard_hint(torch.sigmoid(ri[..., :d].float()),
+                   ("batch", None, "model"))
+    i_g = shard_hint(torch.sigmoid(ri[..., d:].float()),
+                     ("batch", None, "model"))
     log_a = -RG_LRU_C * _softplus(lp["lam"].float()) * r
     gated = (i_g * conv.float()) * torch.sqrt(
         torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -214,9 +223,16 @@ def _rec_block(cfg: RGLRUConfig, x, lp, state=None, lens=None):
         h = torch.exp(log_a[:, 0]) * state[0] + gated[:, 0]
         ret = (h, xc[:, -(cw - 1):])
         h = h[:, None]
-    x = x + (h.to(x.dtype) * gate) @ lp["w_out"]
+    x = x + _rows(h.to(x.dtype) * gate @ lp["w_out"])
     h2 = rms_norm(x, lp["mlp_norm"])
-    return x + geglu(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"]), ret
+    return x + _rows(geglu(h2, lp["wi_gate"], lp["wi_up"],
+                           lp["wo_mlp"])), ret
+
+
+def _rows(t):
+    """A block output placed as the residual stream: batch over the dp
+    axes, replicated on "model" (row-parallel partial sums reduced)."""
+    return shard_hint(t, ("batch", None, None))
 
 
 def _attn_block(cfg: RGLRUConfig, x, lp, cache=None, pos0=0, lens=None):
@@ -228,10 +244,11 @@ def _attn_block(cfg: RGLRUConfig, x, lp, cache=None, pos0=0, lens=None):
     roped k/v of the latest prompt position p < lens with p = r (mod W)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lp = _gather_weights(lp)
     xn = rms_norm(x, lp["norm"])
-    q = (xn @ lp["wq"]).reshape(b, s, h, hd)
-    k = (xn @ lp["wk"]).reshape(b, s, hkv, hd)
-    v = (xn @ lp["wv"]).reshape(b, s, hkv, hd)
+    q = split_heads(xn @ lp["wq"], h, hd, heads_axis(h))
+    k = split_heads(xn @ lp["wk"], hkv, hd, None)
+    v = split_heads(xn @ lp["wv"], hkv, hd, None)
     new_cache = None
     if cache is None:
         cos, sin = rope_cos_sin(torch.arange(s, device=x.device), hd,
@@ -262,23 +279,49 @@ def _attn_block(cfg: RGLRUConfig, x, lp, cache=None, pos0=0, lens=None):
             cols = pos % W
         cos, sin = rope_cos_sin(pos, hd, cfg.rope_base, cfg.cdtype)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
+        write_rows(ck, rows, cols, k)
+        write_rows(cv, rows, cols, v)
         # the ring holds the last W positions; unfilled slots are masked
         filled = torch.clamp(torch.as_tensor(pos0, device=x.device) + s,
                              max=W)
         attn = attention(q, ck, cv, causal=False, kv_len=filled)
         new_cache = (ck, cv)
-    x = x + attn.reshape(b, s, h * hd) @ lp["wo"]
+    x = x + _rows(merge_heads(attn, heads_axis(h)) @ lp["wo"])
     h2 = rms_norm(x, lp["mlp_norm"])
-    return x + geglu(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"]), new_cache
+    return x + _rows(geglu(h2, lp["wi_gate"], lp["wi_up"],
+                           lp["wo_mlp"])), new_cache
 
 
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------
+# the weights' in-loop specs (the reference's): a DTensor weight's FSDP
+# dim is gathered at block entry
+_WSPECS = {
+    "w_x": ("fsdp", "model"), "w_gate": ("fsdp", "model"),
+    "w_ri": ("fsdp", "model"), "w_out": ("model", "fsdp"),
+    "wi_gate": ("fsdp", "model"), "wi_up": ("fsdp", "model"),
+    "wo_mlp": ("model", "fsdp"), "wq": ("fsdp", "model"),
+    "wk": ("fsdp", None), "wv": ("fsdp", None), "wo": ("model", "fsdp"),
+}
+
+
+def _gather_weights(lp):
+    """A block's weights at their compute placements; plain weights as
+    they are."""
+    if not is_dtensor(next(iter(lp.values()))):
+        return lp
+    return {k: (gather_fsdp(v, _WSPECS[k]) if k in _WSPECS else v)
+            for k, v in lp.items()}
+
+
 def _embed(params, tokens, cfg: RGLRUConfig):
-    return params["embed"][tokens].to(cfg.cdtype)
+    return embed_rows(params["embed"], tokens).to(cfg.cdtype)
+
+
+def _unembed(params, x):
+    head = gather_fsdp(params["head"], ("fsdp", "model"))
+    return shard_hint(x @ head, ("batch", None, "model"))
 
 
 def _group(cfg, x, ra, rb, at):
@@ -299,6 +342,7 @@ def _trunk(params, tokens, cfg: RGLRUConfig):
                            preserve_rng_state=False)
         else:
             x = _group(cfg, x, *lps)
+        x = shard_hint(x, ("batch", None, None))
     for i in range(cfg.n_tail_rec):
         x, _ = _rec_block(cfg, x, _layer(params["tail"], i))
     return rms_norm(x, params["final_norm"])
@@ -307,7 +351,7 @@ def _trunk(params, tokens, cfg: RGLRUConfig):
 def forward(params, tokens, cfg: RGLRUConfig):
     """tokens (B, S) int -> logits (B, S, V)."""
     params = cast_params(params, cfg)
-    return _trunk(params, tokens, cfg) @ params["head"]
+    return _unembed(params, _trunk(params, tokens, cfg))
 
 
 def loss_fn(params, batch, cfg: RGLRUConfig):
@@ -317,9 +361,10 @@ def loss_fn(params, batch, cfg: RGLRUConfig):
     params = cast_params(params, cfg)
     x = _trunk(params, batch["tokens"], cfg)
     if cfg.loss_chunk and labels.shape[-1] % cfg.loss_chunk == 0:
-        return chunked_lm_loss(x, params["head"], labels,
-                               chunk=cfg.loss_chunk)
-    return softmax_xent(x @ params["head"], labels).mean()
+        return chunked_lm_loss(x, gather_fsdp(params["head"],
+                                              ("fsdp", "model")),
+                               labels, chunk=cfg.loss_chunk)
+    return softmax_xent(_unembed(params, x), labels).mean()
 
 
 def init_cache(cfg: RGLRUConfig, batch: int, max_len: int, dtype=None,
@@ -380,7 +425,7 @@ def decode_step(params, cache, tokens, cfg: RGLRUConfig):
             st_t.append(st)
         new["tail"] = _stack_states(st_t)
     x = rms_norm(x[:, -1:], params["final_norm"])
-    return (x @ params["head"])[:, -1], new
+    return _unembed(params, x)[:, -1], new
 
 
 def prefill_cells(params, tokens, lens, cfg: RGLRUConfig):

@@ -37,6 +37,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.hints import (embed_rows, gather_fsdp,
+                                          is_dtensor, merge_heads,
+                                          mesh_axis_size, shard_hint,
+                                          split_heads, write_rows)
+
 from .layers import (_qpos, apply_rope, attention, gelu_mlp, geglu,
                      layer_norm, mrope_cos_sin, rms_norm, rope_cos_sin,
                      swiglu)
@@ -242,19 +247,58 @@ def _layer(params, i: int) -> dict:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+# the residual stream on a mesh: batch over the dp axes, replicated on
+# "model" (the reference shards its sequence there, Megatron-SP)
+_ROWS = ("batch", None, None)
+
+# the weights' in-loop specs (the reference's, under its fsdp_hints)
+_BLOCK_WSPECS = {
+    "wq": ("fsdp", "model"), "wk": ("fsdp", "model"), "wv": ("fsdp", "model"),
+    "wo": ("model", "fsdp"), "wi_gate": ("fsdp", "model"),
+    "wi_up": ("fsdp", "model"), "wo_mlp": ("model", "fsdp"),
+    "wi": ("fsdp", "model"), "router": ("fsdp", None),
+    "moe_wi_gate": ("model", "fsdp", None),
+    "moe_wi_up": ("model", "fsdp", None), "moe_wo": ("model", None, "fsdp"),
+}
+
+
 def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
            cache=None, kv_len=None):
     """One transformer block.  cache: (k, v) of (B, M, Hkv, hd), or the
-    paged (k_pool, v_pool, page_table); written in place."""
+    paged (k_pool, v_pool, page_table); written in place.
+
+    The hints are the reference's, at its sites, and act only on
+    DTensors.  A DTensor weight is gathered over its FSDP dim at block
+    entry whatever `fsdp_hints` says (ZeRO-3: left sharded, DTensor may
+    gather the activations instead).  Heads shard over "model" when they
+    divide it; where they do not, q, k and v are replicated on "model"
+    (the reference shards q's sequence there instead, which a causal
+    kernel call on a slice of the queries cannot take).  A plain residual
+    stream takes none of this: one type test, then the plain code."""
     b, s, _ = x.shape
     hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    meshed = is_dtensor(x)
+    if meshed:
+        lp = {k: (gather_fsdp(v, _BLOCK_WSPECS[k]) if k in _BLOCK_WSPECS
+                  else v) for k, v in lp.items()}
     hnb = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_bias"))
+    if meshed:
+        hnb = shard_hint(hnb, _ROWS)
     q, k, v = hnb @ lp["wq"], hnb @ lp["wk"], hnb @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    if meshed:
+        ms = mesh_axis_size("model")
+        head_ax = "model" if (ms is not None and h % ms == 0
+                              and cache is None) else None
+        kv_head_ax = "model" if (head_ax and hkv % ms == 0) else None
+        q = split_heads(q, h, hd, head_ax)
+        k = split_heads(k, hkv, hd, kv_head_ax)
+        v = split_heads(v, hkv, hd, kv_head_ax)
+    else:
+        q = q.reshape(b, s, h, hd)
+        k = k.reshape(b, s, hkv, hd)
+        v = v.reshape(b, s, hkv, hd)
     if cfg.pos_embed == "rope":
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     rows = torch.arange(b, device=x.device)
@@ -274,8 +318,8 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
         ck, cv = cache
         cols = _qpos(q_offset, s, x.device)
         cols = cols if cols.dim() == 2 else cols[None].expand(b, s)
-        ck[rows[:, None], cols] = k.to(ck.dtype)
-        cv[rows[:, None], cols] = v.to(cv.dtype)
+        write_rows(ck, rows[:, None], cols, k)
+        write_rows(cv, rows[:, None], cols, v)
         k, v = ck, cv
 
     if torch.is_tensor(q_offset) and q_offset.dim() == 1:
@@ -288,13 +332,19 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
         attn = attention(q, k, v, impl=cfg.attn_impl, causal=True,
                          window=cfg.window, q_offset=q_offset,
                          kv_len=kv_len)
-    attn_out = attn.reshape(b, s, h * hd) @ lp["wo"]
+    if meshed:
+        attn_out = shard_hint(merge_heads(attn, head_ax) @ lp["wo"], _ROWS)
+    else:
+        attn_out = attn.reshape(b, s, h * hd) @ lp["wo"]
     if cfg.parallel_block:
         # Command-R: attention and FFN read the same normed input
         return x + cfg.residual_scale * (attn_out + _mlp(cfg, lp, hnb))
     x = x + cfg.residual_scale * attn_out
     h2 = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_bias"))
-    return x + cfg.residual_scale * _mlp(cfg, lp, h2)
+    if not meshed:
+        return x + cfg.residual_scale * _mlp(cfg, lp, h2)
+    mlp_out = shard_hint(_mlp(cfg, lp, shard_hint(h2, _ROWS)), _ROWS)
+    return x + cfg.residual_scale * mlp_out
 
 
 def _mlp(cfg, lp, h):
@@ -319,19 +369,35 @@ def _embed(cfg, params, tokens):
     (the EnCodec stub of the reference)."""
     emb = params["embed"]
     if cfg.n_codebooks > 1:
-        x = sum(emb[q][tokens[:, q]] for q in range(cfg.n_codebooks))
+        x = sum(embed_rows(emb[q], tokens[:, q])
+                for q in range(cfg.n_codebooks))
     else:
-        x = emb[tokens]
+        x = embed_rows(emb, tokens)
     return (x * cfg.embed_scale).to(cfg.cdtype)
 
 
 def _unembed(cfg, params, x):
     """(B, S, V) logits, or (B, n_q, S, V) for a multi-codebook model."""
     if cfg.n_codebooks > 1:
-        logits = torch.einsum("bsd,qdv->bqsv", x, params["head"])
+        head = _head(cfg, params)
+        if is_dtensor(x):
+            # one product per codebook: DTensor has no rule for the
+            # einsum's batched form
+            logits = torch.stack([x @ head[q] for q in
+                                  range(cfg.n_codebooks)], dim=1)
+        else:
+            logits = torch.einsum("bsd,qdv->bqsv", x, head)
+        logits = shard_hint(logits, ("batch", None, None, "model"))
     else:
-        logits = x @ params["head"]
+        logits = shard_hint(x @ _head(cfg, params),
+                            ("batch", None, "model"))
     return logits * cfg.logit_scale
+
+
+def _head(cfg, params):
+    """The cast unembedding matrix, a DTensor's FSDP dim gathered."""
+    return gather_fsdp(params["head"], (None,) * (cfg.n_codebooks > 1)
+                       + ("fsdp", "model"))
 
 
 def _sin_table(cfg, pos, dtype):
@@ -374,8 +440,11 @@ def _positions(cfg, x, pos0, positions):
 
 def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
     """Embeddings -> blocks -> final norm, from cast params."""
-    x, (cos, sin) = _positions(cfg, _embed(cfg, params, tokens), 0,
-                               positions)
+    x = _embed(cfg, params, tokens)
+    meshed = is_dtensor(x)
+    if meshed:
+        x = shard_hint(x, _ROWS)
+    x, (cos, sin) = _positions(cfg, x, 0, positions)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         if remat:
@@ -384,6 +453,8 @@ def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
                            use_reentrant=False, preserve_rng_state=False)
         else:
             x = _block(cfg, x, _layer(params, i), cos, sin)
+        if meshed:
+            x = shard_hint(x, _ROWS)
     return _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
 
 
@@ -404,7 +475,7 @@ def loss_fn(params, batch, cfg: TransformerConfig):
     x = _hidden(params, batch["tokens"], cfg, batch.get("positions"))
     if cfg.loss_chunk and cfg.n_codebooks == 1 \
             and labels.shape[-1] % cfg.loss_chunk == 0:
-        return chunked_lm_loss(x, params["head"], labels,
+        return chunked_lm_loss(x, _head(cfg, params), labels,
                                chunk=cfg.loss_chunk,
                                logit_scale=cfg.logit_scale)
     return softmax_xent(_unembed(cfg, params, x), labels).mean()

@@ -31,6 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.hints import (embed_rows, gather_fsdp,
+                                          is_dtensor, merge_heads,
+                                          shard_hint, split_heads,
+                                          weight_grad_placements)
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 from . import grouped
@@ -136,17 +140,32 @@ def _slstm_block(cfg: XLSTMConfig, x, lp, state=None):
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
+    lp = _gather_weights(lp)
     xn = rms_norm(x, lp["norm"])
-    gates_x = (xn @ lp["w_gates"] + lp["b_gates"]).reshape(b, s, 4, h, dh)
-    if state is None:
-        zeros = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-        c, n, hprev = zeros, zeros, zeros
-        m = torch.full((b, h, dh), -torch.inf, device=x.device)
-    else:
-        c, n, m, hprev = state
+    # placed whole before the head split (4 heads on a wider model axis)
+    gates_x = shard_hint(xn @ lp["w_gates"] + lp["b_gates"],
+                         ("batch", None, None)).reshape(b, s, 4, h, dh)
     # the reference's einsum of the f32 carry and the recurrent weights
     # promotes the weights to f32
     r = lp["r_gates"].reshape(h, 4, dh, dh).float()
+    hs, carry = _local(_slstm_scan, r, gates_x, *(state or ()),
+                       n_weights=1, carries=4)
+    out = merge_heads(hs, None).to(x.dtype)
+    return x + _rows(out @ lp["w_out"]), carry
+
+
+def _slstm_scan(r, gates_x, *state):
+    """The sLSTM recurrence over gates_x (B, S, 4, H, dh) from `state`
+    (c, n, m, h), fresh when empty.  Returns (h per position (B, S, H,
+    dh), (c, n, m, h) after the last)."""
+    b, s, _, h, dh = gates_x.shape
+    if not state:
+        zeros = torch.zeros((b, h, dh), dtype=torch.float32,
+                            device=gates_x.device)
+        c, n, hprev = zeros, zeros, zeros
+        m = torch.full((b, h, dh), -torch.inf, device=gates_x.device)
+    else:
+        c, n, m, hprev = state
     hs = []
     for t in range(s):
         gx = gates_x[:, t].float()                       # (B, 4, H, dh)
@@ -162,8 +181,43 @@ def _slstm_block(cfg: XLSTMConfig, x, lp, state=None):
         m = m_new
         hprev = o * c / torch.maximum(torch.abs(n), torch.ones_like(n))
         hs.append(hprev)
-    out = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
-    return x + out @ lp["w_out"], (c, n, m, hprev)
+    return torch.stack(hs, 1), (c, n, m, hprev)
+
+
+def _rows(t):
+    """A block output placed as the residual stream: batch over the dp
+    axes, replicated on "model"."""
+    return shard_hint(t, ("batch", None, None))
+
+
+def _local(fn, *args, n_weights: int = 0, carries: int = 0):
+    """fn(*args) on plain tensors.  On DTensors, under `local_map`: the
+    first `n_weights` arguments replicated, the others placed batch-major
+    (dim 0 over the dp axes, replicated on "model"), so the xLSTM cores
+    run whole on each rank's rows, as the reference's heads (4 on a
+    16-way axis) stay replicated.  fn returns one tensor, or (tensor,
+    tuple of `carries` tensors)."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    placed = [shard_hint(a, (None,) * a.dim()) if i < n_weights else
+              shard_hint(a, ("batch",) + (None,) * (a.dim() - 1))
+              for i, a in enumerate(args)]
+    rows = list(placed[n_weights].placements)
+    flat = fn if not carries else \
+        (lambda *a: (lambda o: (o[0], *o[1]))(fn(*a)))
+    data = placed[n_weights]
+    out = local_map(flat, out_placements=(rows,) * (1 + carries)
+                    if carries else rows,
+                    in_placements=tuple(tuple(a.placements)
+                                        for a in placed),
+                    in_grad_placements=tuple(
+                        weight_grad_placements(a, data) if i < n_weights
+                        else tuple(a.placements)
+                        for i, a in enumerate(placed)),
+                    device_mesh=placed[0].device_mesh,
+                    redistribute_inputs=False)(*placed)
+    return (out[0], tuple(out[1:])) if carries else out
 
 
 # --------------------------------------------------------------------------
@@ -265,48 +319,84 @@ def _mlstm_block(cfg: XLSTMConfig, x, lp, state=None):
     else None).  state: the carries of a one-position decode step."""
     b, s, _ = x.shape
     h, dh, di = cfg.n_heads, cfg.hd, cfg.d_inner
+    lp = _gather_weights(lp)
     xn = rms_norm(x, lp["norm"])
-    xu = xn @ lp["w_up"]                                # (B, S, Di)
-    zg = F.silu(xn @ lp["w_gate"])
-    q = (xu @ lp["w_q"]).reshape(b, s, h, dh)
-    k = (xu @ lp["w_k"]).reshape(b, s, h, dh)
-    v = (xu @ lp["w_v"]).reshape(b, s, h, dh)
+    xu = shard_hint(xn @ lp["w_up"], ("batch", None, "model"))  # (B,S,Di)
+    zg = shard_hint(F.silu(xn @ lp["w_gate"]), ("batch", None, "model"))
+    q = split_heads(xu @ lp["w_q"], h, dh, None)
+    k = split_heads(xu @ lp["w_k"], h, dh, None)
+    v = split_heads(xu @ lp["w_v"], h, dh, None)
     ifg = xu @ lp["w_if"] + lp["b_if"]                  # (B, S, 2H)
 
     if state is None:
         if s > cfg.mlstm_chunk:
-            out = _mlstm_chunked(q, k, v, ifg, cfg.mlstm_chunk)
+            out = _local(lambda *a: _mlstm_chunked(*a, cfg.mlstm_chunk),
+                         q, k, v, ifg)
         else:
-            out = _mlstm_parallel(q, k, v, ifg)
+            out = _local(_mlstm_parallel, q, k, v, ifg)
         new_state = None
     else:
-        c, n, m = state
-        i_pre = ifg[:, 0, :h].float()                   # (B, H)
-        logf = F.logsigmoid(ifg[:, 0, h:].float())
-        m_new = torch.maximum(logf + m, i_pre)
-        i_g = torch.exp(i_pre - m_new)[..., None, None]
-        f_g = torch.exp(logf + m - m_new)[..., None, None]
-        kf = k[:, 0].float() * dh ** -0.5
-        vf = v[:, 0].float()
-        c_new = f_g * c + i_g * (kf[..., :, None] * vf[..., None, :])
-        n_new = f_g[..., 0] * n + i_g[..., 0] * kf
-        qf = q[:, 0].float()
-        num = torch.einsum("bhd,bhde->bhe", qf, c_new)
-        # stabilised states hold exp(-m)-scaled values: the max(|.|, 1)
-        # floor becomes exp(-m) in the scaled representation
-        den = torch.maximum(torch.abs((qf * n_new).sum(-1)),
-                            torch.exp(-m_new))
-        out = (num / den[..., None]).reshape(b, 1, di).to(x.dtype)
-        new_state = (c_new, n_new, m_new)
-    out = rms_norm(out.reshape(b, s, di), lp["skip_norm"]) * zg
-    return x + out @ lp["w_down"], new_state
+        out, new_state = _local(_mlstm_step, q, k, v, ifg, *state,
+                                carries=3)
+        out = out.to(x.dtype)
+    out = rms_norm(merge_heads(out.reshape(b, s, h, dh), None),
+                   lp["skip_norm"]) * zg
+    return x + _rows(out @ lp["w_down"]), new_state
+
+
+def _mlstm_step(q, k, v, ifg, c, n, m):
+    """One recurrent mLSTM position: q, k, v (B, 1, H, dh), ifg (B, 1,
+    2H), carries (C, n, m).  Returns (out (B, 1, H * dh) f32, new
+    carries)."""
+    b, _, h, dh = q.shape
+    i_pre = ifg[:, 0, :h].float()                       # (B, H)
+    logf = F.logsigmoid(ifg[:, 0, h:].float())
+    m_new = torch.maximum(logf + m, i_pre)
+    i_g = torch.exp(i_pre - m_new)[..., None, None]
+    f_g = torch.exp(logf + m - m_new)[..., None, None]
+    kf = k[:, 0].float() * dh ** -0.5
+    vf = v[:, 0].float()
+    c_new = f_g * c + i_g * (kf[..., :, None] * vf[..., None, :])
+    n_new = f_g[..., 0] * n + i_g[..., 0] * kf
+    qf = q[:, 0].float()
+    num = torch.einsum("bhd,bhde->bhe", qf, c_new)
+    # stabilised states hold exp(-m)-scaled values: the max(|.|, 1)
+    # floor becomes exp(-m) in the scaled representation
+    den = torch.maximum(torch.abs((qf * n_new).sum(-1)),
+                        torch.exp(-m_new))
+    return (num / den[..., None]).reshape(b, 1, h * dh), (c_new, n_new,
+                                                           m_new)
 
 
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------
+# the weights' in-loop specs (the reference's): a DTensor weight's FSDP
+# dim is gathered at block entry
+_WSPECS = {
+    "w_gates": ("fsdp", "model"), "w_out": ("fsdp", "model"),
+    "w_up": ("fsdp", "model"), "w_gate": ("fsdp", "model"),
+    "w_q": ("fsdp", "model"), "w_k": ("fsdp", "model"),
+    "w_v": ("fsdp", "model"), "w_if": ("fsdp", None),
+    "w_down": ("model", "fsdp"),
+}
+
+
+def _gather_weights(lp):
+    """A block's weights at their compute placements; plain weights as
+    they are."""
+    if not is_dtensor(next(iter(lp.values()))):
+        return lp
+    return {k: (gather_fsdp(v, _WSPECS[k]) if k in _WSPECS else v)
+            for k, v in lp.items()}
+
+
 def _embed(params, tokens, cfg: XLSTMConfig):
-    return params["embed"][tokens].to(cfg.cdtype)
+    return embed_rows(params["embed"], tokens).to(cfg.cdtype)
+
+
+def _head(params):
+    return gather_fsdp(params["head"], ("fsdp", "model"))
 
 
 def _pair(cfg, x, sl, ml):
@@ -326,13 +416,15 @@ def _trunk(params, tokens, cfg: XLSTMConfig):
                            preserve_rng_state=False)
         else:
             x = _pair(cfg, x, sl, ml)
+        x = shard_hint(x, ("batch", None, None))
     return rms_norm(x, params["final_norm"])
 
 
 def forward(params, tokens, cfg: XLSTMConfig, positions=None):
     """tokens (B, S) int -> logits (B, S, V)."""
     params = cast_params(params, cfg)
-    return _trunk(params, tokens, cfg) @ params["head"]
+    return shard_hint(_trunk(params, tokens, cfg) @ _head(params),
+                      ("batch", None, "model"))
 
 
 def loss_fn(params, batch, cfg: XLSTMConfig):
@@ -342,9 +434,9 @@ def loss_fn(params, batch, cfg: XLSTMConfig):
     params = cast_params(params, cfg)
     x = _trunk(params, batch["tokens"], cfg)
     if cfg.loss_chunk and labels.shape[-1] % cfg.loss_chunk == 0:
-        return chunked_lm_loss(x, params["head"], labels,
+        return chunked_lm_loss(x, _head(params), labels,
                                chunk=cfg.loss_chunk)
-    return softmax_xent(x @ params["head"], labels).mean()
+    return softmax_xent(x @ _head(params), labels).mean()
 
 
 def init_cache(cfg: XLSTMConfig, batch: int, max_len: int, dtype=None,

@@ -41,9 +41,16 @@ def _fsync_dir(path: str):
         os.close(fd)
 
 
+def _full(t):
+    """A DTensor's full value (gathered); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def host_copy(state):
-    """One copy of every leaf in host memory, made now."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+    """One copy of every leaf in host memory, made now (a DTensor's full
+    value, gathered)."""
+    return tree_map(lambda t: _full(t).detach().to("cpu", copy=True), state)
 
 
 def save(state, directory: str, step: int, keep: int = 3) -> str:
@@ -144,7 +151,8 @@ def _verify_and_load(path: str):
 
 def restore_into(template, directory: str, step: int | None = None):
     """Restore into the structure, devices and dtypes of `template` (a
-    tree of tensors).  Returns (step, state)."""
+    tree of tensors; a DTensor leaf gets its own slice, placed as the
+    template's).  Returns (step, state)."""
     steps = sorted(d for d in os.listdir(directory) if d.startswith("step-"))
     if step is not None:
         name = f"step-{step:08d}"
@@ -159,9 +167,17 @@ def restore_into(template, directory: str, step: int | None = None):
         if arr.shape != tuple(leaf.shape):
             raise ValueError(f"{key}: shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")
-        leaves.append(torch.from_numpy(arr).to(device=leaf.device,
-                                               dtype=leaf.dtype))
+        full = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        leaves.append(_place_as(full, leaf))
     return got_step, tree_unflatten(template, leaves)
+
+
+def _place_as(full, leaf):
+    from torch.distributed.tensor import DTensor
+    if not isinstance(leaf, DTensor):
+        return full
+    from repro_torch.distributed.sharding import slice_as
+    return slice_as(full, leaf.device_mesh, leaf.placements)
 
 
 def restore_latest(template, directories):

@@ -14,8 +14,14 @@ another over views `x[p]` (the reference vmaps; per-pod math is
 independent, so the order changes no result), and their results are
 stacked back.  The outer step is a masked mean over per-pod deltas plus
 Nesterov momentum, with the wire hop simulated pod-locally
-(`_wire_sim_hop`).  The hop over a pod group of cards (the reference's
-`_wire_shard_hop`) and the sharded steps wait for ROADMAP A3b.
+(`_wire_sim_hop`).
+
+On a DeviceMesh (`make_diloco_round(mesh=...)`) the pod axis of the
+state shards over "pod" (`distributed.sharding.diloco_specs`): each rank
+runs its own n_pods / pod_size pods' inner steps, each sharded over
+"data" x "model" on the mesh's (data, model) sub-mesh, and the outer hop
+is `_wire_shard_hop`: each rank quantizes its own tile of each pod delta
+and all-gathers only the compressed payload over the "pod" group.
 
 The pod mask makes satellite loss and stragglers first-class: a masked
 pod is excluded from the outer average and rejoins on the re-broadcast
@@ -36,6 +42,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.distributed import compression as codec
+from repro_torch.distributed import sharding
+from repro_torch.distributed.hints import is_dtensor
 from repro_torch.sync import no_host_sync
 
 from .fault_tolerance import screen_init, screen_update
@@ -43,8 +51,10 @@ from .loop import TrainConfig, make_train_step
 from .optimizer import init_opt_state
 from .tree import tree_leaves, tree_map
 
-A3B = ("the hop over a pod group of cards (mesh, _wire_shard_hop, "
-       "make_sharded_*) is not ported (ROADMAP A3b)")
+# the outer sync's wire budget: per-pod payload bytes within this factor
+# of `outer_wire_bytes` for its declared compress mode (the dry run's
+# --check compares per pod against per pod)
+LINT_BUDGET = {"host_callbacks": 0, "outer_wire_budget_factor": 2.0}
 
 
 @dataclass(frozen=True)
@@ -180,6 +190,98 @@ def _wire_sim_hop(deltas, ef, pod_mask, denom, method: str, block: int,
     return grad, new_ef
 
 
+def _pod_group(mesh):
+    return mesh["pod"].get_group()
+
+
+def _all_gather_pods(x, group, size: int):
+    """(p_loc, ...) from each rank of the pod group -> (size * p_loc, ...)
+    in pod-rank order."""
+    import torch.distributed as dist
+    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _wire_shard_hop(deltas, ef, pod_mask, denom, fmt):
+    """The wire hop over the mesh's "pod" group: each rank quantizes its
+    own tile of each of its pods' deltas (blocks padded inside the tile,
+    so they never straddle a shard boundary) and all-gathers only the
+    compressed payload (int8 q + f32 scales, or top-k f32 values + int32
+    lane-local indices) over the pod group; the decode and the masked
+    mean happen after the gather.  `deltas` and `ef` are DTensors placed
+    by `diloco_specs` (the pod axis on "pod"); `pod_mask` and `denom`
+    plain tensors.  Returns (outer grad tree placed like the params, new
+    EF tree placed like `ef`): bitwise `_wire_sim_hop` on the same
+    layout."""
+    mesh = fmt.mesh
+    pod_dim = mesh.mesh_dim_names.index("pod")
+    n_pod_ranks = mesh.size(pod_dim)
+    p_loc = fmt.n_pods // n_pod_ranks
+    group = _pod_group(mesh)
+    row0 = mesh.get_local_rank(pod_dim) * p_loc
+    w = pod_mask.float().reshape(-1, 1)
+    w_own = w[row0:row0 + p_loc]
+
+    def leaf_hop(d, e, lay):
+        d_loc, e_loc = d.to_local(), e.to_local()
+        t = d_loc.reshape(p_loc, -1) + e_loc.reshape(p_loc, -1)
+        m = t.shape[1]
+        if fmt.method == "int8":
+            q, scale = codec.int8_wire_compress(t, fmt.block)
+            sent_all = codec.int8_wire_decompress(
+                _all_gather_pods(q, group, n_pod_ranks),
+                _all_gather_pods(scale, group, n_pod_ranks), m)
+        else:
+            vals, idx = codec.topk_wire_compress(t, fmt.topk_frac)
+            sent_all = codec.topk_wire_decompress(
+                _all_gather_pods(vals, group, n_pod_ranks),
+                _all_gather_pods(idx, group, n_pod_ranks), m)
+        grad = torch.sum(sent_all * w, dim=0) / denom
+        resid = torch.where(w_own > 0, t - sent_all[row0:row0 + p_loc],
+                            e_loc.reshape(p_loc, -1))
+        return (sharding.dtensor_of(grad.reshape(d_loc.shape[1:]), mesh,
+                           _replica_placements(d), tuple(d.shape[1:])),
+                sharding.dtensor_of(resid.reshape(e_loc.shape), mesh, e.placements,
+                           tuple(e.shape)))
+
+    pairs = tree_map(leaf_hop, deltas, ef, fmt.layout)
+    grad = tree_map(lambda d, p: p[0], deltas, pairs)
+    new_ef = tree_map(lambda d, p: p[1], deltas, pairs)
+    return grad, new_ef
+
+
+def _replica_placements(d):
+    """A pod-axis DTensor's placements for one replica: the pod dim's
+    Shard(0) becomes Replicate, every other Shard moves down one dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    pod_dim = d.device_mesh.mesh_dim_names.index("pod")
+    return [Replicate() if i == pod_dim else
+            (Shard(p.dim - 1) if isinstance(p, Shard) else p)
+            for i, p in enumerate(d.placements)]
+
+
+def _mean_shard_hop(deltas, pod_mask, denom):
+    """The uncompressed hop over the "pod" group: each rank sums its own
+    pods' masked deltas on its tile and one f32 all-reduce over the pod
+    group adds the pods' sums (the reference's masked-mean all-reduce).
+    Returns the outer grad tree placed like the params."""
+    import torch.distributed as dist
+
+    def leaf(d):
+        mesh = d.device_mesh
+        pod_dim = mesh.mesh_dim_names.index("pod")
+        d_loc = d.to_local()
+        p_loc = d_loc.shape[0]
+        row0 = mesh.get_local_rank(pod_dim) * p_loc
+        w = _pod_weights(pod_mask[row0:row0 + p_loc].float(), d_loc.dim())
+        part = torch.sum(d_loc * w, dim=0)
+        dist.all_reduce(part, group=_pod_group(mesh))
+        return sharding.dtensor_of(part / denom, mesh, _replica_placements(d),
+                          tuple(d.shape[1:]))
+    return tree_map(leaf, deltas)
+
+
 def outer_step(d_state, dcfg: DiLoCoConfig, pod_mask=None,
                compress: str | None = None, topk_frac: float = 0.01,
                wire=None):
@@ -192,13 +294,15 @@ def outer_step(d_state, dcfg: DiLoCoConfig, pod_mask=None,
 
     compress: "int8"/"topk" runs each surviving pod's delta through the
     error-feedback compressor (d_state must carry "pod_ef") in the
-    single-lane layout.  wire: a `WireFormat` (overrides `compress`) whose
-    lane layout the simulated hop follows; its mesh must be None.
+    single-lane layout.  wire: a `WireFormat` (overrides `compress`):
+    with a mesh, the hop is `_wire_shard_hop` over its "pod" group (the
+    d_state then holds DTensors placed by `diloco_specs`); without one,
+    the simulated hop in the same lane layout.  A d_state of DTensors
+    without compression averages the deltas with one f32 all-reduce per
+    leaf over the pod group (`_mean_shard_hop`).
     """
     layout, block = None, 256
     if wire is not None:
-        if wire.mesh is not None:
-            raise NotImplementedError(A3B)
         compress, topk_frac = wire.method, wire.topk_frac
         layout, block = wire.layout, wire.block
     if pod_mask is None:
@@ -218,10 +322,15 @@ def outer_step(d_state, dcfg: DiLoCoConfig, pod_mask=None,
     deltas = tree_map(per_pod_delta, d_state["global_params"],
                       d_state["pod_params"])
     new_ef = None
-    if compress is not None:
+    if wire is not None and wire.mesh is not None:
+        grad, new_ef = _wire_shard_hop(deltas, d_state["pod_ef"], pod_mask,
+                                       denom, wire)
+    elif compress is not None:
         grad, new_ef = _wire_sim_hop(deltas, d_state["pod_ef"], pod_mask,
                                      denom, compress, block, topk_frac,
                                      layout)
+    elif is_dtensor(tree_leaves(deltas)[0]):
+        grad = _mean_shard_hop(deltas, pod_mask, denom)
     else:
         grad = tree_map(lambda d: torch.sum(
             d * _pod_weights(pod_mask, d.dim()), dim=0) / denom, deltas)
@@ -233,7 +342,8 @@ def outer_step(d_state, dcfg: DiLoCoConfig, pod_mask=None,
         d_state["global_params"], m, grad)
     new_m = tree_map(lambda m_new, m_old: torch.where(alive, m_new, m_old),
                      m, d_state["outer_m"])
-    new_pods = tree_map(lambda gp: _stack_pods(gp, dcfg.n_pods), new_global)
+    new_pods = tree_map(lambda gp, old: _place_like(
+        _stack_pods(gp, dcfg.n_pods), old), new_global, d_state["pod_params"])
     out = {**d_state, "global_params": new_global, "outer_m": new_m,
            "pod_params": new_pods}
     if new_ef is not None:
@@ -241,12 +351,21 @@ def outer_step(d_state, dcfg: DiLoCoConfig, pod_mask=None,
     return out
 
 
+def _place_like(x, like):
+    """A DTensor re-placed as `like` (the re-broadcast pods back on the
+    pod axis: a local slice, no communication); plain tensors as they
+    are."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
 def make_diloco_round(model_cfg, fns, tcfg: TrainConfig, dcfg: DiLoCoConfig,
                       *, compress: str | None = None,
                       topk_frac: float = 0.01, data=None,
                       screen_window: int = 0, min_screen: int = 8,
                       mesh=None, supervise: bool = False):
-    """One DiLoCo round on one device.
+    """One DiLoCo round, on one device or on a DeviceMesh.
 
     Returns round(d_state, batches, pod_mask, thresholds) -> (d_state,
     metrics):
@@ -271,13 +390,35 @@ def make_diloco_round(model_cfg, fns, tcfg: TrainConfig, dcfg: DiLoCoConfig,
     and screen ring buffer are reset; metrics gain "pod_bad" (n_pods,),
     "pod_alive" (the effective mask) and "outer_ok" (global params and
     outer momentum all finite).
+
+    With `mesh` (a DeviceMesh with axes ("pod", "data", "model"), n_pods a
+    multiple of its pod size): the d_state's params, moments and EF are
+    DTensors placed by `diloco_specs` (a d_state from `diloco_init` is
+    placed on the first call, `shard_diloco_state`); "step" and the
+    screens stay plain tensors, the same on every rank.  Each rank runs
+    its own pods' inner steps on the (data, model) sub-mesh
+    (`make_sharded_train_step`), the (n_pods, H) metrics are all-gathered
+    over the pod group, and with `compress` the hop is `_wire_shard_hop`
+    in the lanes of `wire_format_for`.  Supervision, screens and per-pod
+    rollback are the unmeshed ones.
     """
-    if mesh is not None:
-        raise NotImplementedError(A3B)
-    pod_inner = _make_pod_inner(model_cfg, fns, tcfg)
+    wire_fmt, ctx = None, _no_mesh
+    if mesh is None:
+        pod_inner = _make_pod_inner(model_cfg, fns, tcfg)
+    else:
+        pod_inner = _make_mesh_pod_inner(model_cfg, fns, tcfg, dcfg, mesh)
+        ctx = _mesh_ctx(mesh)
+        if compress is not None:
+            wire_fmt = codec.wire_format_for(
+                sharding.param_shapes(model_cfg),
+                sharding.param_specs(model_cfg), mesh,
+                dcfg.n_pods, method=compress, topk_frac=topk_frac)
 
     def round_fn(d_state, batches, pod_mask, thresholds):
-        with no_host_sync(pod_mask.device):
+        if mesh is not None and not is_dtensor(
+                tree_leaves(d_state["pod_params"])[0]):
+            d_state = shard_diloco_state(d_state, model_cfg, mesh)
+        with no_host_sync(pod_mask.device), ctx():
             if data is not None:
                 batches = data.batch_block(batches)
             new_p, new_o, losses, gnorms = pod_inner(
@@ -315,7 +456,7 @@ def make_diloco_round(model_cfg, fns, tcfg: TrainConfig, dcfg: DiLoCoConfig,
                 pod_bad = torch.any(flags["suspect"], dim=1)
                 eff_mask = pod_mask * (1.0 - pod_bad.float())
             d_state = outer_step(d_state, dcfg, eff_mask, compress=compress,
-                                 topk_frac=topk_frac)
+                                 topk_frac=topk_frac, wire=wire_fmt)
             if supervise:
                 def reset_rows(tree, init_row=None):
                     def per_leaf(x, i=None):
@@ -339,15 +480,121 @@ def make_diloco_round(model_cfg, fns, tcfg: TrainConfig, dcfg: DiLoCoConfig,
                         screen_window, pod_mask.device))
                     d_state = {**d_state, "screen": reset_rows(
                         d_state["screen"], init)}
-                outer_ok = torch.stack(
-                    [torch.all(torch.isfinite(x.float()))
-                     for x in (tree_leaves(d_state["global_params"])
-                               + tree_leaves(d_state["outer_m"]))]).all()
+                outer_ok = _all_finite(
+                    tree_leaves(d_state["global_params"])
+                    + tree_leaves(d_state["outer_m"]))
                 metrics.update(pod_bad=pod_bad, pod_alive=eff_mask,
                                outer_ok=outer_ok)
         return d_state, metrics
 
     return round_fn
+
+
+def _no_mesh():
+    import contextlib
+    return contextlib.nullcontext()
+
+
+def _mesh_ctx(mesh):
+    """The ambient mesh, with plain tensors taken as replicated."""
+    from repro_torch.distributed.hints import on_mesh
+    return lambda: on_mesh(mesh)
+
+
+def _all_finite(leaves):
+    """One device bool: every leaf all finite.  DTensors check their own
+    shards and agree over the whole group (a MIN all-reduce)."""
+    if not leaves or not is_dtensor(leaves[0]):
+        return torch.stack([torch.all(torch.isfinite(x.float()))
+                            for x in leaves]).all()
+    import torch.distributed as dist
+    ok = torch.stack([torch.all(torch.isfinite(x.to_local().float()))
+                      for x in leaves]).all().to(torch.int32)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return ok > 0
+
+
+def shard_diloco_state(d_state, model_cfg, mesh):
+    """A d_state of global tensors (the same on every rank, from
+    `diloco_init`) -> its params, moments and EF as DTensors placed by
+    `diloco_specs`; "step" and "screen" stay plain."""
+    specs = sharding.diloco_specs(sharding.param_specs(model_cfg),
+                                  compress="pod_ef" in d_state)
+    out = dict(d_state)
+    for k in ("global_params", "outer_m", "pod_params", "pod_opt",
+              "pod_ef"):
+        if k in d_state:
+            out[k] = sharding.distribute(d_state[k], specs[k], mesh)
+    return out
+
+
+def _pod_slice(x, j: int, sub):
+    """Local pod j of a pod-axis DTensor, as a DTensor on the (data,
+    model) sub-mesh `sub`."""
+    from torch.distributed.tensor import Shard
+    pod_dim = x.device_mesh.mesh_dim_names.index("pod")
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for i, p in enumerate(x.placements) if i != pod_dim]
+    return sharding.dtensor_of(x.to_local()[j], sub, pl, tuple(x.shape[1:]))
+
+
+def _pod_stack(xs, like):
+    """Local pods (DTensors on the sub-mesh) stacked back into a pod-axis
+    DTensor placed as `like`."""
+    from torch.distributed.tensor import DTensor
+    local = torch.stack([x.to_local() for x in xs])
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def _make_mesh_pod_inner(model_cfg, fns, tcfg: TrainConfig,
+                         dcfg: DiLoCoConfig, mesh):
+    """`_make_pod_inner` on a mesh: this rank's pods, one after another,
+    each trained on the (data, model) sub-mesh; the (n_pods, H) losses
+    and grad norms all-gathered over the pod group."""
+    from .loop import make_sharded_train_step
+    names = mesh.mesh_dim_names
+    if names != ("pod", "data", "model"):
+        raise ValueError(f"a DiLoCo mesh has axes ('pod', 'data', "
+                         f"'model'), got {names}")
+    n_ranks = mesh.size(0)
+    if dcfg.n_pods % n_ranks:
+        raise ValueError(f"{dcfg.n_pods} pods do not divide over a pod "
+                         f"axis of {n_ranks}")
+    p_loc = dcfg.n_pods // n_ranks
+    row0 = mesh.get_local_rank(0) * p_loc
+    sub = mesh["data", "model"]
+    group = _pod_group(mesh)
+    step_fn = make_sharded_train_step(model_cfg, fns, tcfg, sub)
+
+    def pod_inner(pod_params, pod_opt, step0, batches):
+        h = next(iter(batches.values())).shape[1]
+        params, opts, losses, gnorms = [], [], [], []
+        for j in range(p_loc):
+            state = {"params": tree_map(lambda x: _pod_slice(x, j, sub),
+                                        pod_params),
+                     "opt": tree_map(lambda x: _pod_slice(x, j, sub),
+                                     pod_opt),
+                     "step": step0}
+            for i in range(h):
+                state, metrics = step_fn(
+                    state, {k: v[row0 + j, i] for k, v in batches.items()})
+                losses.append(metrics["loss"])
+                gnorms.append(metrics["grad_norm"])
+            params.append(state["params"])
+            opts.append(state["opt"])
+
+        def stack(like, *xs):
+            return _pod_stack(xs, like)
+        rows = torch.stack([torch.stack(losses), torch.stack(gnorms)]
+                           ).reshape(2, p_loc, h).transpose(0, 1)
+        rows = _all_gather_pods(rows.contiguous(), group, n_ranks)
+        return (tree_map(stack, pod_params, *params),
+                tree_map(stack, pod_opt, *opts),
+                rows[:, 0].contiguous(), rows[:, 1].contiguous())
+
+    return pod_inner
 
 
 def snapshot_global_params(d_state):
@@ -368,7 +615,7 @@ def outer_wire_bytes(params, compress: str | None = None,
         return wire_tree_bytes(params, wire)
     total = 0
     for x in tree_leaves(params):
-        n = math.prod(x.shape) if x.dim() else 1
+        n = math.prod(x.shape)
         if compress == "int8":
             rows = -(-n // 256)
             total += rows * 256 + rows * 4       # int8 payload + f32 scales

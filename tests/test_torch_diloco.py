@@ -514,13 +514,29 @@ def test_all_dead_outer_step_is_a_no_op(p):
 
 
 def test_mesh_and_wire_shard_hop_are_refused(p):
-    from repro_torch.distributed.compression import WireFormat
-    with pytest.raises(NotImplementedError, match="A3b"):
-        make_diloco_round(p.cfg, p.fns, p.tcfg, p.dcfg, mesh=object())
-    fmt = WireFormat(method="int8", layout=None, n_pods=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="A3b"):
-        outer_step(diloco_init(p.params, p.dcfg, compress="int8"), p.dcfg,
-                   wire=fmt)
+    """What the mesh round still refuses: a mesh without the ("pod",
+    "data", "model") axes, and pods that do not divide its pod axis; a
+    wire format derived for a mesh that is not a DeviceMesh is the
+    simulated hop, which runs.  The hop over a pod group itself:
+    tests/test_torch_mesh.py."""
+    from repro_torch.distributed.compression import wire_format_for
+    from repro_torch.distributed.sharding import param_shapes, param_specs
+    flat = SimpleNamespace(mesh_dim_names=("data", "model"))
+    with pytest.raises(ValueError, match="axes"):
+        make_diloco_round(p.cfg, p.fns, p.tcfg, p.dcfg, mesh=flat)
+    three = SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
+                            size=lambda i: (4, 1, 1)[i])
+    with pytest.raises(ValueError, match="do not divide"):
+        make_diloco_round(p.cfg, p.fns, p.tcfg, p.dcfg, mesh=three)
+    fmt = wire_format_for(param_shapes(p.cfg), param_specs(p.cfg),
+                          {"pod": 1, "data": 1, "model": 1}, p.dcfg.n_pods,
+                          method="int8")
+    assert fmt.mesh is None
+    d = diloco_init(p.params, p.dcfg, compress="int8")
+    out = outer_step(d, p.dcfg, wire=fmt)
+    ref = outer_step(d, p.dcfg, compress="int8")
+    for a, b in zip(tree_paths(out).values(), tree_paths(ref).values()):
+        assert torch.equal(a, b)
 
 
 def test_wire_format_round_follows_its_lane_layout(p):

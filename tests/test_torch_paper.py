@@ -86,7 +86,7 @@ def constellation():
 def test_entries_cover_the_papers_benchmarks():
     assert set(ENTRIES) == {"fig1_isl", "fig2_constellation", "j2_drift",
                             "radiation_table", "fig4_launch", "table1_power",
-                            "diloco_traffic"}
+                            "diloco_traffic", "roofline"}
     assert set(ON_DEVICE) < set(ENTRIES)
     for name in ENTRIES:
         assert (ROOT / "benchmarks" / f"{name}.py").exists(), name
@@ -143,7 +143,7 @@ def _runner(*args):
 
 def test_runner_prints_the_host_entries_as_the_reference():
     proc = _runner("--device", "cpu", "--skip",
-                   "fig2_constellation,j2_drift,diloco_traffic")
+                   "fig2_constellation,j2_drift,diloco_traffic,roofline")
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -156,8 +156,8 @@ def test_runner_prints_the_host_entries_as_the_reference():
 
 
 def test_runner_refuses_an_unknown_entry():
-    with pytest.raises(SystemExit, match=r"unknown entries \['roofline'\]"):
-        runner.main(["--device", "cpu", "--skip", "roofline"])
+    with pytest.raises(SystemExit, match=r"unknown entries \['hlo'\]"):
+        runner.main(["--device", "cpu", "--skip", "hlo"])
 
 
 def test_runner_default_device_refuses_without_a_card():

@@ -345,13 +345,14 @@ def test_train_cli_default_device_refuses_without_a_card():
 
 
 def test_train_cli_refuses_unported_flags():
-    """--mesh is still refused (ROADMAP A3b); --sdc-rate-multiplier is
-    ported: at 2e3 the per-step loop detects, rolls back and finishes, at
-    1e5 a persistent non-finite loss raises instead of livelocking, as the
-    reference launcher does."""
+    """--mesh takes the reference's kinds only (none, test, single,
+    multi; training on them: tests/test_torch_mesh.py);
+    --sdc-rate-multiplier is ported: at 2e3 the per-step loop detects,
+    rolls back and finishes, at 1e5 a persistent non-finite loss raises
+    instead of livelocking, as the reference launcher does."""
     proc = _train_cli("--device", "cpu", "--mesh", "2")
     assert proc.returncode != 0
-    assert "unrecognized arguments: --mesh" in proc.stderr
+    assert "argument --mesh: invalid choice: '2'" in proc.stderr
     proc = _train_cli("--device", "cpu", "--steps", "3",
                       "--sdc-rate-multiplier", "2e3")
     assert proc.returncode == 0, proc.stderr
