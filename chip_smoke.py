@@ -14,6 +14,7 @@
                                      # and 21-22 only, no result line
   python3 chip_smoke.py --phase 23   # phases 1 and 23 only, no result line
   python3 chip_smoke.py --phase 24   # phases 1 and 24 only, no result line
+  python3 chip_smoke.py --phase 25   # phases 1 and 25 only, no result line
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -135,15 +136,16 @@ phase took.
    2 pods x H 8, SyntheticLM seq 1024 and batch 8 per pod step, int8
    error-feedback compression, pod masks from ConstellationLinkModel,
    under DiLoCoSupervisor for 4 rounds with a whole-round rollback forced
-   at round 3 and a snapshot every 2 rounds (keep 1, two replicas).
+   at round 3 and a snapshot every 2 rounds (keep 1, one replica since
+   slice 12, for the run's time: phase 5 writes two).
    Losses finite and falling; the replay verified bitwise; one host
    drain per round run; B3 launched 24 times per inner step run; the
    masks used equal `mask_at` computed on the CPU; sent + residual ==
    delta + ef bitwise at every leaf (int8, top-k); a round with pod 1
    NaN-poisoned gives pod_bad [F, T] and outer_ok, bitwise equal to the
    plain round with pod 1 masked by hand and to make_inner_steps +
-   outer_step.  Prints one snapshot's time (device to host, replicated
-   write), one round's wall time and tok/s, one round under
+   outer_step.  Prints one snapshot's device-to-host time (the run's
+   replicated writes are in its wall time), one round's wall time and tok/s, one round under
    torch.profiler, the outer sync's device time with none, int8 and
    top-k, and peak memory.  Phases 8-10 run under
    torch.use_deterministic_algorithms(True).
@@ -275,13 +277,14 @@ phase took.
    the base;
    ConstellationLinkModel(integrate=True) at 8 pods, masks equal to the
    CPU port's.  (c) train_controller at the reference test's problem
-   (3 x 3 lattice, 20 intervals x 4 substeps, 25 iterations, float64) on
+   (3 x 3 lattice, 20 intervals x 4 substeps, 12 iterations (the
+   reference test's 25 until slice 12), float64) on
    the card and the CPU from the same draws: loss histories within 1e-8
    relative, the loss under 0.6x its start, rms error under 0.8x free
    fall's.  The CPU sides of (b) and (c) run in one worker process while
    the card works.  Each prints its seconds.
-21. Train granite-moe-1b-a400m (12 of 24 layers since slice 11, all 24
-   before: 32 experts top-8, H 16/8), xlstm-350m (1 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
+21. Train granite-moe-1b-a400m (6 of 24 layers since slice 12, 12 in
+   slice 11, all 24 before: 32 experts top-8, H 16/8), xlstm-350m (1 of 12 sLSTM/mLSTM pairs) and recurrentgemma-2b
    (5 of 26 layers: one remat'd (rec, rec, attn) group and the two tail
    recurrent blocks, the loss in chunks of 256 positions) at their
    published widths in phase 18's setting: bf16 compute, f32 masters
@@ -293,9 +296,9 @@ phase took.
    layer counts and remat give (`family_launches`).  tok/s and peak
    memory per run.  Then the train launcher on the card, side by side:
    the reference launcher's DiLoCo example for granite-moe (reduced,
-   `--diloco-pods 2 --inner-steps 8 --compress int8`) and 8 steps of
-   xlstm-350m and recurrentgemma-2b (reduced) exit 0 having launched B3
-   or B4 forward and backward.
+   `--diloco-pods 2 --inner-steps 8 --compress int8 --steps 16`) and 4
+   steps of xlstm-350m and recurrentgemma-2b (reduced) exit 0 having
+   launched B3 or B4 forward and backward.
 22. Reference: the three families' reduced configs (granite-moe at
    head_dim 64, xLSTM's chunked form), f32, card against CPU: one
    batch's loss within 1e-3, every gradient leaf within GRAD_TOL of its
@@ -341,6 +344,19 @@ phase took.
    the estimate and their ratio, FLOPs per rank beside the analytic
    roofline priced at H100_SXM, and B3 launches (2 x 40 layers x 2
    microbatches).  Its B3 launches count into the kernels line.
+25. The lint on the port (slice 12).  (a) `python -m
+   repro_torch.analysis.lint` over src/repro_torch exits 0; (b) every
+   visible budget entry (`--budgets`: the engine's decode block, prefill
+   buckets, migration and replication entry points, dense, paged and
+   RG-LRU; the DiLoCo round; the outer sync none / int8 / top-k as rank 0
+   of a fake (2, 2, 2) group, its shards on the card; the publish
+   snapshot) runs on the card at its reduced config with 0 host syncs by
+   the dispatch count and 0 synchronizing operations under sync debug
+   mode "warn", 0 decode collective bytes, 4 compiled variants, and
+   launches B1, B2, B3 and B4; (c) the hidden regression entry (the
+   simulated int8 hop) exits 1 with BG002; (d) a planted .item() in the
+   decode block is caught by both counts.  (a) and (c) run the CLI's
+   `main` in this process (its exit status and output).
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -355,8 +371,10 @@ rows phase 14; the `_mha`, `_dh160`, `_dh128` and `_h40` rows phase 17's
 minicpm-2b, stablelm-12b, command-r-35b and qwen2.5-32b runs; the new B3
 rows phase 18; `flash_attention_h16` and `rglru_scan_bwd` phase 21, whose
 B4 forwards add to the `rglru_scan` row; phase 24a's B3 launches add
-to `flash_attention`, 24c's to `flash_attention_dh160`), errors, times
-and bounds; B4's rows also name their copy path.
+to `flash_attention`, 24c's to `flash_attention_dh160`; phase 25b's B1,
+B2, B3 and B4 launches to the `decode_attention`, `paged_decode_attention`,
+`flash_attention` and `rglru_scan` rows), errors, times and bounds; B4's
+rows also name their copy path.
 """
 import gc
 import json
@@ -1755,7 +1773,7 @@ def diloco_phase(torch):
                                    TrainConfig, diloco_init,
                                    make_diloco_round, make_inner_steps,
                                    outer_step, outer_wire_bytes,
-                                   pod_step_grid, save_replicated_async)
+                                   pod_step_grid)
     from repro_torch.train.checkpoint import host_copy
     from repro_torch.train.fault_tolerance import drain
     from repro_torch.train.tree import tree_leaves, tree_map, tree_paths
@@ -1787,7 +1805,7 @@ def diloco_phase(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = (os.path.join(tmp, "a"), os.path.join(tmp, "b"))
+        dirs = (os.path.join(tmp, "a"),)
         ft = FTConfig(checkpoint_dirs=dirs, checkpoint_every=2 * h, keep=1)
         flash_attention.launches = 0
         t0 = time.perf_counter()
@@ -1831,21 +1849,16 @@ def diloco_phase(torch):
               f"step; replay verified bitwise; masks used == mask_at on the "
               f"CPU ({[m.tolist() for _, m in calls]})", flush=True)
 
-        # one snapshot by itself: device to host, then the replicated
-        # background write the supervisor starts, joined
+        # one snapshot's device-to-host copy by itself (the run above
+        # wrote three inside its wall time)
         base = sup.d_state
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         snap = host_copy(base)
         t1 = time.perf_counter()
-        for t in save_replicated_async(snap, dirs, 10**6, keep=1,
-                                       copy=False):
-            t.join()
-        t2 = time.perf_counter()
         del snap
         print(f"  one snapshot of {state_gb:.3f} GB: device to host "
-              f"{t1 - t0:.3f} s, replicated write (2 replicas, parallel) "
-              f"{t2 - t1:.3f} s", flush=True)
+              f"{t1 - t0:.3f} s", flush=True)
 
     # EF invariant at every full-width leaf: sent + residual == delta + ef
     g = torch.Generator(device=dev).manual_seed(3)
@@ -3334,12 +3347,13 @@ def branch_paths(torch):
 # of 26 layers, one (rec, rec, attn) group under remat and the two tail
 # recurrent blocks without, with the loss in chunks of 256 positions
 # ((8, 1024, 256000) f32 logits would be 8.4 GB)
-FAMILY_TRAIN = {"granite-moe-1b-a400m": (12, {}),
+FAMILY_TRAIN = {"granite-moe-1b-a400m": (6, {}),
                 "xlstm-350m": (2, {}),
                 "recurrentgemma-2b": (5, {"loss_chunk": 256})}
-# steps a run (8 unless named): xlstm-350m 4 since slice 11, for the run's
-# time (its sLSTM loop is the slowest step of the script)
-FAMILY_STEPS = {"xlstm-350m": 4}
+# steps a run (8 unless named): xlstm-350m 4 since slice 11 and 2 since
+# slice 12, for the run's time (its sLSTM loop is the slowest step of the
+# script)
+FAMILY_STEPS = {"xlstm-350m": 2}
 
 
 def family_launches(cfg, seq, steps):
@@ -3367,19 +3381,20 @@ def family_launchers():
     """Phase 21, last part: the train launcher on the card at its reduced
     defaults for the three families, side by side: the reference
     launcher's DiLoCo example for granite-moe-1b-a400m (`--diloco-pods 2
-    --inner-steps 8 --compress int8`) and 8 steps of xlstm-350m and
-    recurrentgemma-2b; each exits 0, granite launches B3 and the other two
-    B4 forward and backward."""
+    --inner-steps 8 --compress int8`, 16 steps: 2 rounds since slice 12)
+    and 4 steps (8 until slice 12) of xlstm-350m and recurrentgemma-2b;
+    each exits 0, granite launches B3 and the other two B4 forward and
+    backward."""
     runs = ((("-m", "repro_torch.launch.train", "--arch",
               "granite-moe-1b-a400m", "--diloco-pods", "2", "--inner-steps",
-              "8", "--compress", "int8"),
+              "8", "--compress", "int8", "--steps", "16"),
              (("B3", r"flash-attention kernel launches "),)),
             (("-m", "repro_torch.launch.train", "--arch", "xlstm-350m",
-              "--steps", "8"),
+              "--steps", "4"),
              (("B4", r"scan kernel launches: forward "),
               ("B4 bwd", r"scan kernel launches: forward \d+ backward "))),
             (("-m", "repro_torch.launch.train", "--arch",
-              "recurrentgemma-2b", "--steps", "8"),
+              "recurrentgemma-2b", "--steps", "4"),
              (("B4", r"scan kernel launches: forward "),
               ("B4 bwd", r"scan kernel launches: forward \d+ backward "))))
     results = _launchers([args for args, _ in runs])
@@ -3559,7 +3574,11 @@ def family_train_paths(torch):
     return total
 
 
-CONTROL_ITERS = 25       # phase 20c's iterations (the reference test's)
+# phase 20c's iterations: the reference test's 25 until slice 12, 12
+# since (for the run's time; on the CPU the loss reaches 0.467x its start
+# and the rms error 0.694x free fall's at 12, against the 0.6x and 0.8x
+# the phase holds it to)
+CONTROL_ITERS = 12
 
 
 def _launchers(runs, timeout=600):
@@ -3800,7 +3819,7 @@ def slice8_cpu_side():
     """Phase 20's CPU references, run in a worker process while the card
     runs phase 20a: the J2 orbit (the paper's Fig. 2 entry: one orbit, dt
     5 s), the integrate=True
-    liveness masks at 8 pods and the controller's 25 iterations, each
+    liveness masks at 8 pods and the controller's iterations, each
     timed; plain numbers and numpy arrays out."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
@@ -3911,8 +3930,8 @@ def orbit_phase(torch, cpu):
 
 def control_phase(torch, cpu):
     """Phase 20c: the formation controller at the reference test's problem
-    (3 x 3 lattice, 20 intervals of 4 dopri5 substeps, 25 iterations of
-    Adam, float64) from one set of initial draws on the card and on the
+    (3 x 3 lattice, 20 intervals of 4 dopri5 substeps, CONTROL_ITERS
+    iterations of Adam, float64) from one set of initial draws on the card and on the
     CPU: loss histories within 1e-8 relative, the last loss under 0.6x
     the first, and the trained policy's rms position error under 0.8x
     free fall's, on the card.  `cpu` is the future of `slice8_cpu_side`,
@@ -4461,32 +4480,125 @@ def mesh_dryrun_phase(torch, smi, out_dir, estimate):
     return launches, err
 
 
-def mesh_paths(torch, smi):
-    """Phase 24; returns {"B3": 24a's launches, "B3_dh160": 24c's,
-    "B3_dh160_err": B3's max abs err at 24c's local shape}.  24c's
-    fake-mode estimate (host work only, ~30 s) runs in a process of its
-    own beside 24a and 24b."""
+def start_estimate(threads):
+    """24c's fake-mode estimate (host work only, 30-80 s), a dry-run CLI
+    process started on `threads`: the whole run starts it before phase
+    23, so that it runs beside phases 23, 24a and 24b."""
     from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
-    est_run = ("-m", "repro_torch.launch.dryrun", "--arch", "stablelm-12b",
-               "--shape", "train_4k", "--mesh", "single", "--chip", "h100",
-               "--out", os.path.join(out_dir, "fake"))
-    with ThreadPoolExecutor(1) as threads:
-        estimate = threads.submit(_launchers, [est_run], 300)
-        print("  24a: one-rank NCCL mesh", flush=True)
-        torch.use_deterministic_algorithms(True)
-        torch.utils.deterministic.fill_uninitialized_memory = False
-        try:
-            b3 = mesh_step_phase(torch)
-        finally:
-            torch.use_deterministic_algorithms(False)
-            torch.utils.deterministic.fill_uninitialized_memory = True
-        print("  24b/24c: fake process groups, rank 0 on the card",
-              flush=True)
-        t0 = time.perf_counter()
-        b3_dh160, err = mesh_dryrun_phase(torch, smi, out_dir, estimate)
-        print(f"  24b/24c took {time.perf_counter() - t0:.1f} s",
-              flush=True)
+    return threads.submit(_launchers, [(
+        "-m", "repro_torch.launch.dryrun", "--arch", "stablelm-12b",
+        "--shape", "train_4k", "--mesh", "single", "--chip", "h100", "--out",
+        os.path.join(out_dir, "fake"))], 400)
+
+
+def mesh_paths(torch, smi, estimate):
+    """Phase 24; returns {"B3": 24a's launches, "B3_dh160": 24c's,
+    "B3_dh160_err": B3's max abs err at 24c's local shape}.  `estimate`
+    is the future of `start_estimate`."""
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    print("  24a: one-rank NCCL mesh", flush=True)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        b3 = mesh_step_phase(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    print("  24b/24c: fake process groups, rank 0 on the card",
+          flush=True)
+    t0 = time.perf_counter()
+    b3_dh160, err = mesh_dryrun_phase(torch, smi, out_dir, estimate)
+    print(f"  24b/24c took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return {"B3": b3, "B3_dh160": b3_dh160, "B3_dh160_err": err}
+
+
+LINT_TITLE = ("phase 25: the lint on the port: the AST rules, every "
+              "budget entry on the card under both host-sync counts, the "
+              "regression entry, a planted .item() in a decode block")
+REGRESSION = "diloco-outer-sync-regression"
+
+
+def lint_cli(*argv):
+    """`python -m repro_torch.analysis.lint` with `argv`, run in this
+    process: (exit status, what it printed)."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.lint.__main__ import main as lint_main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = lint_main(list(argv))
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def lint_paths_phase(torch, smi):
+    """Phase 25, in this process: (a) the lint's CLI over src/repro_torch
+    exits 0; (b) every visible budget entry on the card (0 host syncs by
+    the dispatch count and by sync debug mode, 0 decode collective bytes,
+    len(buckets) + 1 compiled variants; B1, B2, B3 and B4 launched); (c)
+    the CLI's hidden regression entry on the card exits 1 with BG002
+    alone; (d) a planted .item() in the engine's decode block, which both
+    counts must catch.  Returns the budget entries' kernel launches
+    {"B1", "B2", "B3", "B4"}."""
+    from repro_torch.analysis.lint.budgets import BUDGETS, run_budget_checks
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    wrappers = {"B1": decode_attention, "B2": paged_decode_attention,
+                "B3": flash_attention, "B4": rglru_scan_fwd}
+    rc_a, out_a, dt_a = lint_cli()
+    print(f"  25a: {out_a.strip().splitlines()[-1] if out_a.strip() else ''}"
+          f" (exit {rc_a}, {dt_a:.1f} s)", flush=True)
+    check(rc_a == 0, f"the AST lint exited {rc_a}:\n{out_a[-3000:]}")
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    findings, reports = run_budget_checks(device="cuda")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    t_b = time.perf_counter() - t0
+    for name, rep in reports.items():
+        print(f"  25b budget {name}: " + ", ".join(
+            f"{k}={v}" for k, v in rep.items()) + f" | {smi}", flush=True)
+    check(not findings, "budget findings on the card:\n" + "\n".join(
+        f.render() for f in findings))
+    visible = [n for n, s in BUDGETS.items() if not s.hidden]
+    check(sorted(reports) == sorted(visible),
+          f"budget entries run {sorted(reports)} != {sorted(visible)}")
+    for name, rep in reports.items():
+        check(rep["host_syncs"] == 0 and rep["sync_debug_warnings"] == 0,
+              f"{name}: host syncs {rep}")
+    print(f"  25b: {len(reports)} entries in {t_b:.1f} s, 0 host syncs "
+          f"by both counts; kernel launches {launches}", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel never launched in the budget entries: {launches}")
+
+    t0 = time.perf_counter()
+    planted, rep = run_budget_checks(only=["engine-serve"],
+                                     device="cuda", plant="item")
+    decode = [f.message for f in planted if f.rule == "BG001"
+              and f.message.startswith("engine decode block")]
+    by_dispatch = [m for m in decode if "host sync(s)" in m]
+    by_debug = [m for m in decode if "sync debug mode" in m]
+    print(f"  25d: planted .item() in the decode block: "
+          f"{by_dispatch + by_debug} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(by_dispatch and by_debug,
+          f"the planted .item() was not caught by both counts: "
+          f"{[f.render() for f in planted]}")
+
+    rc_c, out_c, dt_c = lint_cli("--budgets", "--only", REGRESSION,
+                                 "--device", "cuda")
+    tail_c = [ln for ln in out_c.splitlines() if ln.strip()]
+    print(f"  25c: {REGRESSION} on the card exited {rc_c} in {dt_c:.1f} s: "
+          f"{tail_c[:2]}", flush=True)
+    check(rc_c == 1 and "BG002" in out_c and "all-gather" in out_c
+          and "BG001" not in out_c,
+          f"the regression entry did not fail BG002 alone (exit {rc_c}):\n"
+          f"{out_c[-3000:]}")
+    return launches
 
 
 def main(argv):
@@ -4500,12 +4612,13 @@ def main(argv):
     only_family_train = argv == ["--phase", "21"]
     only_paper = argv == ["--phase", "23"]
     only_mesh = argv == ["--phase", "24"]
+    only_lint = argv == ["--phase", "25"]
     if argv and not (only_2c or only_new or only_plane or only_family
                      or only_branch or only_slice8 or only_family_train
-                     or only_paper or only_mesh):
+                     or only_paper or only_mesh or only_lint):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
               "--phase 14 | --phase 17 | --phase 20 | --phase 21 | "
-              "--phase 23 | --phase 24]", file=sys.stderr)
+              "--phase 23 | --phase 24 | --phase 25]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4604,9 +4717,17 @@ def main(argv):
         return 0
     if only_mesh:
         phase(MESH_TITLE)
-        print(f"  launches: {mesh_paths(torch, smi)}", flush=True)
+        with ThreadPoolExecutor(1) as threads:
+            launches = mesh_paths(torch, smi, start_estimate(threads))
+        print(f"  launches: {launches}", flush=True)
         phase()
         print("phase 24 alone: no result line")
+        return 0
+    if only_lint:
+        phase(LINT_TITLE)
+        print(f"  launches: {lint_paths_phase(torch, smi)}", flush=True)
+        phase()
+        print("phase 25 alone: no result line")
         return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
@@ -4697,6 +4818,8 @@ def main(argv):
     rows.extend(fam_rows.values())
     torch.cuda.empty_cache()
 
+    est_threads = ThreadPoolExecutor(1)       # 24c's estimate, beside 23
+    estimate = start_estimate(est_threads)
     phase(PAPER_TITLE)
     paper = paper_paths(torch, block_s, smi)
     rows[0]["launches"] += paper["B1"]       # serve_batch (dh 16 -> 64)
@@ -4705,12 +4828,22 @@ def main(argv):
     torch.cuda.empty_cache()
 
     phase(MESH_TITLE)
-    mesh = mesh_paths(torch, smi)
+    mesh = mesh_paths(torch, smi, estimate)
+    est_threads.shutdown()
     rows[2]["launches"] += mesh["B3"]        # 24a, through local_map
     named = {r["name"]: r for r in rows}
     named["flash_attention_dh160"]["launches"] += mesh["B3_dh160"]
     named["flash_attention_dh160"]["max_abs_err"] = max(
         named["flash_attention_dh160"]["max_abs_err"], mesh["B3_dh160_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(LINT_TITLE)
+    lint = lint_paths_phase(torch, smi)
+    rows[0]["launches"] += lint["B1"]        # the budget entries' reduced
+    rows[1]["launches"] += lint["B2"]        # configs (dh 16, which the
+    rows[2]["launches"] += lint["B3"]        # kernels run zero-padded to
+    rows[3]["launches"] += lint["B4"]        # 64)
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")
 

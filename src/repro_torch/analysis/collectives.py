@@ -18,14 +18,32 @@ collective-permute) `bytes`, `counts` and `bytes_by_dtype`, plus
 an all-reduce moves ~2x its buffer per device, the others ~1x).  Eager
 mode executes every collective it counts, a loop's included, so the
 loop-aware total equals the plain one and `unknown_loops` is always
-empty.  Host callbacks (the reference's `host_callbacks`) go with the
-host-sync lint (ROADMAP A7).
+empty.
+
+`HostSyncCounter` stands where the reference counts host callbacks in a
+compiled graph (`host_callbacks`, same schema: `count` and `targets`):
+every read of a tensor's value on the host inside it, on any device.  A
+TorchFunctionMode sees the tensor methods that read a value (`.item()`,
+`.cpu()`, `.tolist()`, `.numpy()`, `np.asarray`, `.to("cpu")`, `bool()`,
+`float()`, `int()`, printing): on CPU tensors these copy nothing and
+never reach the dispatcher, so only this layer sees them there.  A
+TorchDispatchMode sees what runs below the methods, on the card too:
+`_local_scalar_dense`, `is_nonzero`, device-to-host `_to_copy`/`copy_`,
+`equal` and the ops whose output shape depends on the data (`nonzero`,
+boolean-mask indexing, `masked_select`, `unique`, `repeat_interleave`
+without `output_size`).  One read counts once, at the outermost layer
+that saw it.  A DeviceMesh's own rank bookkeeping reads CPU tensors on
+every device: host work, not counted.  On the card only reads of tensors
+on the card count (a CPU tensor's read waits for nothing).
 """
 from __future__ import annotations
 
-from collections import defaultdict
+import contextlib
+import sys
+from collections import Counter, defaultdict
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 WIRE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
@@ -142,3 +160,176 @@ def collective_bytes_loop_aware(records) -> dict:
     plain = collective_bytes(records)
     return {"bytes": plain["bytes"], "unknown_loops": [],
             "wire_bytes": plain["wire_bytes"]}
+
+
+# --------------------------------------------------------------------------
+# host syncs
+# --------------------------------------------------------------------------
+# tensor methods that read a value to the host
+_READ_METHODS = {"item", "tolist", "numpy", "cpu", "__bool__", "__float__",
+                 "__int__", "__index__", "__complex__", "__array__",
+                 "__repr__", "__str__", "__format__"}
+# aten ops that wait for the device (by op name, any overload)
+_SYNC_OPS = {"_local_scalar_dense", "is_nonzero", "equal", "nonzero",
+             "masked_select", "_unique", "_unique2", "unique_dim",
+             "unique_consecutive", "argwhere"}
+
+
+# modules whose tensor reads are host bookkeeping on every device
+_HOST_MODULES = ("torch.distributed.device_mesh",
+                 "torch.distributed._mesh_layout")
+
+
+def _in_host_bookkeeping() -> bool:
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_globals.get("__name__", "").startswith(_HOST_MODULES):
+            return True
+        f = f.f_back
+    return False
+
+
+def _cpu_target(args, kwargs) -> bool:
+    """True for a `.to("cpu")`: a target the code names as the host.  A
+    `torch.device` target is the run's own device (`.to(x.device)`), a
+    no-op on a CPU run; on the card the dispatch layer sees a real
+    device-to-host `_to_copy` whatever named it."""
+    return any(isinstance(a, str) and torch.device(a).type == "cpu"
+               for a in list(args[1:2]) + [kwargs.get("device")])
+
+
+def _on_device(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.device.type not in ("cpu",
+                                                                  "meta")
+
+
+def _bool_index(indices) -> bool:
+    return any(isinstance(i, torch.Tensor) and i.dtype in (torch.bool,
+                                                            torch.uint8)
+               for i in indices or ())
+
+
+def _dispatch_sync(func, args, kwargs) -> str | None:
+    """The name of the host sync this aten call is, or None."""
+    name = func._schema.name.split("::")[-1]
+    if name in _SYNC_OPS:
+        return f"aten.{name}"
+    if name == "repeat_interleave" and kwargs.get("output_size") is None \
+            and func._overloadname in ("Tensor", "self_Tensor"):
+        return "aten.repeat_interleave (no output_size)"
+    if name in ("index", "index_put", "index_put_") and \
+            _bool_index(args[1] if len(args) > 1 else kwargs.get("indices")):
+        return f"aten.{name} (boolean mask)"
+    if name == "_to_copy" and _on_device(args[0]) and \
+            kwargs.get("device") is not None and \
+            torch.device(kwargs["device"]).type == "cpu":
+        return "aten._to_copy (device to host)"
+    if name == "copy_" and len(args) > 1 and _on_device(args[1]) and \
+            isinstance(args[0], torch.Tensor) and args[0].device.type == "cpu":
+        return "aten.copy_ (device to host)"
+    return None
+
+
+class _SyncFunctions(TorchFunctionMode):
+    def __init__(self, owner):
+        super().__init__()
+        self.owner = owner
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        read = name in _READ_METHODS or (name == "to" and
+                                         _cpu_target(args, kwargs))
+        if not read or not self.owner._counts(args):
+            return func(*args, **kwargs)
+        self.owner.targets[f"Tensor.{name}"] += 1
+        self.owner._depth += 1
+        try:
+            return func(*args, **kwargs)
+        finally:
+            self.owner._depth -= 1
+
+
+class _SyncOps(TorchDispatchMode):
+    def __init__(self, owner):
+        super().__init__()
+        self.owner = owner
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _has_dtensor(types):
+            return NotImplemented
+        hit = _dispatch_sync(func, args, kwargs)
+        if hit is None or not self.owner._counts(args):
+            return func(*args, **kwargs)
+        self.owner.targets[hit] += 1
+        self.owner._depth += 1
+        try:
+            return func(*args, **kwargs)
+        finally:
+            self.owner._depth -= 1
+
+
+class HostSyncCounter:
+    """Counts the host syncs of the code run inside it: each read of a
+    tensor's value on the host, by what read it (`targets`).  `device`
+    is where the run's tensors live.  On the card,
+    `torch.cuda.set_sync_debug_mode("warn")` is the second witness
+    (`sync_debug_warnings`)."""
+
+    def __init__(self, device="cpu"):
+        self.card = torch.device(device).type == "cuda"
+        self.targets = Counter()
+        self._depth = 0
+        self._stack = None
+
+    def _counts(self, args) -> bool:
+        """Whether a read of `args` counts: not inside another counted
+        read, not DeviceMesh bookkeeping, and on the card a read of a
+        tensor on the card."""
+        if self._depth:
+            return False
+        if self.card and not any(_on_device(t) for t in _tensors(args)):
+            return False
+        return not _in_host_bookkeeping()
+
+    def __enter__(self):
+        self._stack = contextlib.ExitStack()
+        self._stack.enter_context(_SyncFunctions(self))
+        self._stack.enter_context(_SyncOps(self))
+        return self
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+    def host_syncs(self) -> dict:
+        """The reference's `host_callbacks` schema: count and targets."""
+        return {"count": sum(self.targets.values()),
+                "targets": dict(self.targets)}
+
+
+# what `torch.cuda.set_sync_debug_mode("warn")` says of each operation
+# that synchronizes (not its one-time notice that the mode is a prototype)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def sync_debug_warnings():
+    """On the card: yields a list that collects the synchronizing
+    operations `torch.cuda.set_sync_debug_mode("warn")` reports inside the
+    block (an inner `no_host_sync` block raises instead); it is complete
+    when the block exits.  Elsewhere: an empty list."""
+    import warnings
+    found = []
+    if not torch.cuda.is_available():
+        yield found
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            yield found
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+        found.extend(w for w in caught if SYNC_WARNING in str(w.message))

@@ -55,7 +55,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis.analytic import analytic_roofline
 from repro_torch.analysis.collectives import (CollectiveCounter,
-                                              collective_bytes_loop_aware)
+                                              HostSyncCounter,
+                                              collective_bytes_loop_aware,
+                                              sync_debug_warnings)
 from repro_torch.core.system import H100_SXM, ChipSpec
 from repro_torch.distributed.hints import on_mesh
 from repro_torch.distributed.sharding import (SDS, batch_axes, batch_specs,
@@ -485,22 +487,27 @@ def check_outer_sync(result: dict):
 def run_outer_sync_cell(arch: str = "suncatcher-lm-100m",
                         compress: str | None = "int8",
                         topk_frac: float = 0.01, n_pods: int = 2,
-                        out_dir: str = RESULTS_DIR, verbose: bool = True,
-                        simulated: bool = False, device: str = "fake"):
-    """Rank 0 of the (2, 16, 16) mesh runs the DiLoCo outer step alone
-    (the inner H steps are pod-local by construction) at the arch's full
-    width, on a fake group; returns the JSON dict (the reference's schema
-    plus `per_pod_wire_bytes`, `seconds` and `device`)."""
+                        out_dir: str | None = RESULTS_DIR,
+                        verbose: bool = True, simulated: bool = False,
+                        device: str = "fake", reduced: bool = False,
+                        mesh_shape=None):
+    """Rank 0 of the (2, 16, 16) mesh (or `mesh_shape`) runs the DiLoCo
+    outer step alone (the inner H steps are pod-local by construction) at
+    the arch's full width (or its reduced config), on a fake group;
+    returns the JSON dict (the reference's schema plus
+    `per_pod_wire_bytes`, `host_syncs`, `seconds` and `device`), written
+    under `out_dir` unless it is None."""
     from repro_torch.distributed.compression import wire_format_for
     from repro_torch.distributed.sharding import diloco_specs
     from repro_torch.train.diloco import (LINT_BUDGET, DiLoCoConfig,
                                           outer_step, outer_wire_bytes)
     comp = None if compress in (None, "none") else compress
-    cfg = registry.get_config(arch)
+    cfg = (registry.get_reduced_config if reduced else
+           registry.get_config)(arch)
     dcfg = DiLoCoConfig(n_pods=n_pods)
     pshapes = param_shapes(cfg)
     pspecs = param_specs(cfg, fsdp=True, multi_pod=True)
-    mesh = _mesh_setup(True, device)
+    mesh = _mesh_setup(True, device, mesh_shape)
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     wire = None
     if comp is not None:
@@ -523,15 +530,20 @@ def run_outer_sync_cell(arch: str = "suncatcher-lm-100m",
             d_state["step"] = torch.zeros((), dtype=torch.int32,
                                           device=_dev(device))
             mask = torch.ones((n_pods,), device=_dev(device))
+            host = HostSyncCounter(_dev(device))
+            warned = []
 
             def hop(d):
-                with on_mesh(mesh):
+                with on_mesh(mesh), sync_debug_warnings() as seen, host:
                     if simulated and comp is not None:
-                        return _simulated_outer(d, dcfg, mask, comp,
-                                                topk_frac, wire)
-                    return outer_step(d, dcfg, pod_mask=mask,
-                                      compress=comp, topk_frac=topk_frac,
-                                      wire=wire)
+                        out = _simulated_outer(d, dcfg, mask, comp,
+                                               topk_frac, wire)
+                    else:
+                        out = outer_step(d, dcfg, pod_mask=mask,
+                                         compress=comp, topk_frac=topk_frac,
+                                         wire=wire)
+                warned.extend(seen)
+                return out
             m = measure(hop, (d_state,), device)
     finally:
         destroy()
@@ -558,6 +570,7 @@ def run_outer_sync_cell(arch: str = "suncatcher-lm-100m",
         "within_budget": bool(per_pod <= factor * predicted),
         "collectives": coll,
         "collectives_loop_aware": m["collectives_loop_aware"],
+        "host_syncs": host.host_syncs(),
         "memory_peak_bytes": m["memory_peak_bytes"],
         "note": ("per_pod_wire_bytes: one rank's own payload (its "
                  "all-gather result over the pod group's ranks, or its "
@@ -566,10 +579,13 @@ def run_outer_sync_cell(arch: str = "suncatcher-lm-100m",
     }
     if "max_memory_allocated" in m:
         result["max_memory_allocated"] = m["max_memory_allocated"]
+    if device == "cuda":
+        result["sync_debug_warnings"] = len(warned)
     tag = f"diloco_outer_{arch}_{compress or 'none'}_multi"
     if simulated and comp is not None:
         tag += "_simulated"
-    _write(result, out_dir, tag)
+    if out_dir is not None:
+        _write(result, out_dir, tag)
     if verbose:
         by = "; ".join(f"{k}: " + ", ".join(f"{d}={b}" for d, b in
                                             sorted(v.items()))

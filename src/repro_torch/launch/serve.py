@@ -21,8 +21,9 @@ the orbital/ISL/radiation stack, and --force-outage-at a chaos schedule
 TICKS omitted = the rest of the run); the launcher then checks the
 zero-drop contract, and with --expect-pointer-flip / --expect-rebalance
 the grid's own guarantees.  --waves serves the workload in sequential
-waves (the reference also checks its jit trace count there; the port
-runs eagerly and has no trace count):
+waves and checks that the compiled-variant count (`trace_count()`, the
+input signatures of the engines' device entry points) stays flat after
+the first, as the reference checks its jit trace count:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --replicas 3 --requests 9 --slots 2 --max-len 64 --force-outage-at 3
@@ -214,11 +215,13 @@ def main(argv=None):
     waves = max(1, args.waves)
     per_wave = -(-len(reqs) // waves)
     t0 = time.perf_counter()
+    trace_marks = []
     done = []
     for w in range(waves):
         for r in reqs[w * per_wave:(w + 1) * per_wave]:
             eng.submit(r)
         done = eng.run()
+        trace_marks.append(eng.trace_count())
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -241,7 +244,7 @@ def main(argv=None):
               f"{s['replicated_bytes']} bytes) | "
               f"{s['masked_pod_ticks']} masked pod-ticks | admitted/pod "
               f"{s['admitted_per_pod']} (home {s['admitted_home']}/spill "
-              f"{s['admitted_spill']})")
+              f"{s['admitted_spill']}) | {eng.trace_count()} traces")
         if mixed:
             for name, occ in s["arch_occupancy"].items():
                 print(f"  group {name} [{occ['state_kind']}]: "
@@ -260,8 +263,8 @@ def main(argv=None):
         print(f"{cfg.name}: served {len(done)} requests on {args.slots} "
               f"slots | {s['tokens'] / dt:.0f} tok/s on {device} | "
               f"{s['host_syncs'] / max(s['tokens'], 1):.3f} "
-              f"host-syncs/token (buckets={eng.buckets()}, "
-              f"decode_block={args.decode_block})")
+              f"host-syncs/token | {eng.trace_count()} traces "
+              f"(buckets={eng.buckets()}, decode_block={args.decode_block})")
         if args.page_size:
             ps = eng.page_stats()
             print(f"  paged KV: {ps['pool_pages']} pool pages x "
@@ -272,7 +275,11 @@ def main(argv=None):
                   f"{s['prefix_stores']} stores | "
                   f"{s['admission_stalls']} admission stalls")
     if waves > 1:
-        print(f"  {waves} waves served")
+        if trace_marks[-1] != trace_marks[0]:
+            raise SystemExit(
+                f"trace count not flat across waves: {trace_marks} — wave 1 "
+                f"must run every variant the steady state needs")
+        print(f"  {waves} waves served, {trace_marks[0]} traces flat")
     print(f"  decode-attention kernel launches: dense "
           f"{decode_attention.launches - launches0[0]}, paged "
           f"{paged_decode_attention.launches - launches0[1]}; rglru-scan "

@@ -42,6 +42,14 @@ from .transformer import TransformerConfig
 from .xlstm import XLSTMConfig
 
 
+# The generic gathers/scatters below are the bodies of the engine's
+# export/import/delta/standby entry points; `python -m
+# repro_torch.analysis.lint --budgets` (entries "engine-serve" /
+# "engine-serve-rglru") asserts they run with zero host syncs for both a
+# KV and a carry family.
+LINT_BUDGET = {"host_callbacks": 0}
+
+
 def _bcast(vec, ndim: int, ax: int):
     """Reshape a (B,) vector to broadcast against a leaf whose slot axis
     is `ax`."""

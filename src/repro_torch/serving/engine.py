@@ -39,11 +39,16 @@ full-width index vectors built on the host; on a CUDA device the vectors
 go up from pinned memory without waiting and the ops run under sync
 debug mode "error", so replication never blocks the host.
 
-The reference's `trace_count()` has no counterpart in eager PyTorch
-(ROADMAP A2 brings a capture count).
+Compiled variants: `trace_count()` counts the distinct input signatures
+(shapes, dtypes and non-tensor arguments, read on the host) that the
+seven device entry points have been called with, the variants a jit
+compiles in the reference and a CUDA-graph capture would need here.
+Power-of-two prefill buckets keep it at len(buckets) + 1 for serving,
+flat across waves, swaps and migrations.
 """
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Optional
@@ -135,6 +140,41 @@ class EngineConfig:
                              "(prefix sharing is page-granular)")
 
 
+# Enforced by `python -m repro_torch.analysis.lint --budgets` (entry
+# "engine-serve"): the decode block and every prefill bucket run with
+# zero host syncs (the reference's host callbacks) and zero collectives
+# (decode is pod-local), and decode + prefill stay within the pow2
+# bucket count of compiled variants.
+LINT_BUDGET = {
+    "host_callbacks": 0,
+    "decode_collective_wire_bytes": 0,
+    "max_traces": 4,  # 3 prefill buckets (16/32/64 at max_len 64) + decode
+}
+
+
+def _signature(x):
+    """A call argument's part of an input signature: a tensor's shape and
+    dtype, a container's keys and items, any other value itself.  Read
+    on the host: no device access."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _signature(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(v) for v in x)
+    return x
+
+
+def _device_entry(fn):
+    """Record each distinct input signature of a device entry point
+    (`ServingEngine.trace_count`)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args):
+        self._variants.add((fn.__name__, _signature(args)))
+        return fn(self, *args)
+    return wrapper
+
+
 def check_swap_compatible(old_params, new_params):
     """Raise unless `new_params` can replace `old_params` in place: the
     same tree of names, and every leaf of the same shape and dtype (so
@@ -191,6 +231,7 @@ class ServingEngine:
         self.queue: list[Request] = []
         self.finished: list[Request] = []
         self.standby = None          # warm-standby store, made on demand
+        self._variants: set = set()  # (entry point, input signature)
         self.stats = {"tokens": 0, "host_syncs": 0, "decode_blocks": 0,
                       "swaps": 0, "exported_slots": 0, "imported_slots": 0,
                       "standby_syncs": 0, "promoted_slots": 0}
@@ -237,6 +278,7 @@ class ServingEngine:
         return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
     # --- the decode block (the hot path) ----------------------------------
+    @_device_entry
     def _engine_step_impl(self, params, cache, state):
         """Decode up to N tokens for every active slot, with no host sync.
 
@@ -273,6 +315,7 @@ class ServingEngine:
                 torch.stack(dones, 1))                  # (B, N) each
 
     # --- bucketed prefill --------------------------------------------------
+    @_device_entry
     def _prefill_impl(self, params, cache, state, tokens, lens, admit,
                       temps, eos, budgets, seqs, page_ops):
         """Prefill `admit`-masked rows of a (max_batch, bucket) block into
@@ -300,6 +343,7 @@ class ServingEngine:
         return new_cache, new_state, first, done0
 
     # --- slot migration (the serving plane) --------------------------------
+    @_device_entry
     def _export_impl(self, cache, state, idx, drop):
         """Gather rows `idx` of the slot state and the decode state (in the
         spec's wire format) into fresh tensors; deactivate `drop`-masked
@@ -310,6 +354,7 @@ class ServingEngine:
         return (bundle_cache, bundle_state, self.spec.release(cache, drop),
                 new_state)
 
+    @_device_entry
     def _import_impl(self, cache, state, bcache, bstate, src_for_dst, mask):
         """Scatter bundle rows into `mask`-ed slots; row d takes bundle row
         `src_for_dst[d]`.  Unmasked rows are untouched."""
@@ -392,6 +437,7 @@ class ServingEngine:
                 self.cache, self.state, bcache, bstate, src, mask)
 
     # --- warm-standby replication ------------------------------------------
+    @_device_entry
     def _delta_export_impl(self, cache, state, idx, starts, width):
         """Each `idx` slot's delta: windowed leaves at [starts, starts +
         width) from the replication cursor, carry leaves whole, plus its
@@ -399,6 +445,7 @@ class ServingEngine:
         return (self.spec.export_delta_rows(cache, idx, starts, width),
                 ds.state_rows(state, self._state_axes, idx))
 
+    @_device_entry
     def _standby_apply_impl(self, sb_cache, sb_state, bcache, bstate,
                             src_for_dst, starts, mask):
         """Scatter a delta bundle into `mask`-ed standby rows; the standby
@@ -408,6 +455,7 @@ class ServingEngine:
                 ds.merge_rows(sb_state, bstate, self._state_axes,
                               src_for_dst, mask))
 
+    @_device_entry
     def _deactivate_impl(self, cache, state, drop):
         return (self.spec.release(cache, drop),
                 {**state, "active": state["active"] & ~drop})
@@ -706,7 +754,7 @@ class ServingEngine:
             self._prefix_staged.clear()
 
         # one transfer for all admission rounds of this fill
-        flat = torch.stack([torch.stack([f, d.to(torch.int32)])
+        flat = torch.stack([torch.stack([f, d.to(torch.int32)])  # repro-lint: allow[HS001] the single batched admission drain; counted in stats["host_syncs"]
                             for _, f, d in results]).cpu().numpy()
         self.stats["host_syncs"] += 1
         for (grp, _, _), (first, done0) in zip(results, flat):
@@ -726,7 +774,7 @@ class ServingEngine:
                 self._engine_step_impl(self.params, self.cache, self.state)
             block = torch.stack([toks, emit.to(torch.int32),
                                  done.to(torch.int32)])
-        toks, emit, done = block.cpu().numpy()
+        toks, emit, done = block.cpu().numpy()  # repro-lint: allow[HS001] the per-block drain: one transfer per decode block, counted in stats["host_syncs"]
         emit, done = emit.astype(bool), done.astype(bool)
         self.stats["host_syncs"] += 1
         self.stats["decode_blocks"] += 1
@@ -793,3 +841,11 @@ class ServingEngine:
             self.step()
             steps += 1
         return self.finished
+
+    def trace_count(self, *entries: str) -> int:
+        """Distinct input signatures the device entry points have run
+        with: the variants the reference's jit compiles, and a graph
+        capture would need.  `entries` (method names such as
+        "_prefill_impl") restricts the count to those."""
+        return sum(1 for name, _ in self._variants
+                   if not entries or name in entries)

@@ -50,7 +50,7 @@ def _full(t):
 def host_copy(state):
     """One copy of every leaf in host memory, made now (a DTensor's full
     value, gathered)."""
-    return tree_map(lambda t: _full(t).detach().to("cpu", copy=True), state)
+    return tree_map(lambda t: _full(t).detach().to("cpu", copy=True), state)  # repro-lint: allow[HS001] the checkpoint snapshot: one device-to-host copy per checkpoint interval, not per step
 
 
 def save(state, directory: str, step: int, keep: int = 3) -> str:

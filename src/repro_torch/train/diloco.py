@@ -504,7 +504,7 @@ def _mesh_ctx(mesh):
 def _all_finite(leaves):
     """One device bool: every leaf all finite.  DTensors check their own
     shards and agree over the whole group (a MIN all-reduce)."""
-    if not leaves or not is_dtensor(leaves[0]):
+    if len(leaves) == 0 or not is_dtensor(leaves[0]):
         return torch.stack([torch.all(torch.isfinite(x.float()))
                             for x in leaves]).all()
     import torch.distributed as dist

@@ -65,6 +65,13 @@ class PublishConfig:
                              f"got {self.holdback_rounds}")
 
 
+# Enforced by `python -m repro_torch.analysis.lint --budgets` (entry
+# "publish-snapshot"): the snapshot copy the publisher stages each round
+# runs with zero host syncs — publication must never add a host
+# round-trip to the training loop it rides on.
+LINT_BUDGET = {"host_callbacks": 0}
+
+
 class ParamPublisher:
     """Stages per-round param snapshots and releases them to `sink` only
     once they can no longer be rolled back.
