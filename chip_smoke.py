@@ -15,6 +15,7 @@
   python3 chip_smoke.py --phase 23   # phases 1 and 23 only, no result line
   python3 chip_smoke.py --phase 24   # phases 1 and 24 only, no result line
   python3 chip_smoke.py --phase 25   # phases 1 and 25 only, no result line
+  python3 chip_smoke.py --phase 26   # phases 1 and 26 only, no result line
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -357,6 +358,37 @@ phase took.
    simulated int8 hop) exits 1 with BG002; (d) a planted .item() in the
    decode block is caught by both counts.  (a) and (c) run the CLI's
    `main` in this process (its exit status and output).
+26. Sequence parallelism on "model" (slice 13).  (a) B1 with its
+   log-sum-exp on 16 slices of 2,048 positions of a 32,768-position
+   cache (8 rows of lengths 0, 5, 2,047, 2,048, 9,000, 20,481, 31,000,
+   32,768), each slice at its local length, the partials merged by
+   `merge_partials`, against B1 on the whole cache and the plain
+   version at the bf16 limit; the slices' lse within LSE_TOL of the
+   plain version's, out 0 and lse -inf exactly on empty slices, the
+   empty row merged to exact zeros; at minicpm-2b's local decode widths
+   (H 36/36, dh 64) and the demo LM's (H 12/4).  Slice 0 at minicpm's
+   widths timed beside its bytes bound, the plain version and the
+   efficient SDPA with its log-sum-exp.  (b) B3 at the query offsets of
+   ranks 0, 7 and 15 of a 2,048-of-32,768 split (minicpm-2b
+   prefill_32k's local shape), 4 heads narrowed, against the plain
+   version at the bf16 limit, two calls bitwise equal; at offset 300
+   (the diagonal across two 128-key tiles) in bf16 and f32 (2e-5); timed
+   at the full local shape at rank 15's offset beside its operations
+   bound, the plain version and SDPA on its flash backend with
+   `causal_lower_right` (rank 15's mask), held to B3 at the bf16 limit.
+   (c)
+   minicpm-2b decode_32k as rank 0 of a fake (16, 16) group on the card,
+   the KV cache's length sharded over "model" (5.6 GiB of it a rank):
+   its own peak within 0.8-1.25x of the fake-mode estimate (a process
+   of its own, started before phase 23), 40 launches of B1 with lse and
+   none of B1 alone, the merge's f32 all-gathers 40 x 16 x 8 x 36 x 65 x
+   4 bytes; prefill_32k as rank 15 (query rows 30,720-32,767 against the
+   whole K/V): query offset 30,720 recorded, 40 launches of B3 at it.
+   (d) 24c's stablelm-12b step runs the Megatron-SP residual: its own
+   peak must fall below the replicated stream's 20.73 GiB; MemTracker's
+   peak on the card is printed beside the fake-mode estimate (the card
+   peaks inside the plain attention backward's softmax backward, which
+   neither sees: `python -m repro_torch.analysis.op_memory`).
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -373,8 +405,10 @@ rows phase 18; `flash_attention_h16` and `rglru_scan_bwd` phase 21, whose
 B4 forwards add to the `rglru_scan` row; phase 24a's B3 launches add
 to `flash_attention`, 24c's to `flash_attention_dh160`; phase 25b's B1,
 B2, B3 and B4 launches to the `decode_attention`, `paged_decode_attention`,
-`flash_attention` and `rglru_scan` rows), errors, times and bounds; B4's
-rows also name their copy path.
+`flash_attention` and `rglru_scan` rows; `decode_attention_lse` (B1
+with its log-sum-exp) and `flash_attention_offset` (B3 at a query
+offset) phase 26c's), errors, times and bounds; B4's rows also name
+their copy path.
 """
 import gc
 import json
@@ -4457,7 +4491,9 @@ def mesh_dryrun_phase(torch, smi, out_dir, estimate):
           f"phases left out) {real['own_peak_bytes'] / 2**30:.2f} GiB vs "
           f"the fake-mode MemTracker estimate "
           f"{est['memory_peak_bytes'] / 2**30:.2f} GiB (ratio {ratio:.3f}; "
-          f"by category {est['memory_peak']}) | FLOPs per rank "
+          f"by category {est['memory_peak']}); MemTracker on the card "
+          f"{real['memory_peak_bytes'] / 2**30:.2f} GiB (by category "
+          f"{real['memory_peak']}) | FLOPs per rank "
           f"{est['flops']['total'] / 1e12:.2f} T (aten "
           f"{est['flops']['aten'] / 1e12:.2f} T + kernels "
           f"{est['flops']['kernels'] / 1e12:.2f} T) vs analytic "
@@ -4472,9 +4508,19 @@ def mesh_dryrun_phase(torch, smi, out_dir, estimate):
           "the fake run counted another number of B3 calls")
     # the estimate counts the rank's own program only (the dry run's
     # MemTracker leaves DTensor's global-shape inference out on every
-    # torch version); the card's peak includes the allocator's rounding
+    # torch version); on the Megatron-SP layout the card peaks inside
+    # the plain attention backward's softmax backward, which holds one
+    # more f32 score tensor (1 GiB here) while it runs: MemTracker sees
+    # the tensors alive between ops only, on the card as in fake mode
     check(0.8 <= ratio <= 1.25, f"the card's own peak is {ratio:.3f}x the "
           f"fake-mode estimate, outside 0.8-1.25x")
+    # 26d: the residual stream is sequence-sharded over "model"
+    # (Megatron-SP) since slice 13, so the per-layer checkpoints shrink
+    # 16-fold: the own peak falls below the 20.73 GiB the same step took
+    # on the card with the stream replicated (PERF.md)
+    check(real["own_peak_bytes"] < 20.73 * 2**30, f"the own peak "
+          f"{real['own_peak_bytes'] / 2**30:.2f} GiB is not below the "
+          f"replicated stream's 20.73 GiB")
     gc.collect()
     torch.cuda.empty_cache()
     return launches, err
@@ -4601,6 +4647,343 @@ def lint_paths_phase(torch, smi):
     return launches
 
 
+SEQPAR_TITLE = ("phase 26: sequence parallelism on 'model': B1 with its "
+                "log-sum-exp on 16 length slices, merged; B3 at query "
+                "offsets; minicpm-2b decode_32k (rank 0) and prefill_32k "
+                "(rank 15) of (16, 16) on the card")
+GIB = 2 ** 30
+
+
+def b1_lse_phase(torch, timer):
+    """26a.  B1 with its log-sum-exp on 16 slices of 2,048 positions of a
+    32,768-position cache, each at its local length, the partials merged
+    (`merge_partials`), against B1 on the whole cache and against the
+    plain version, at the bf16 limit; the slices' lse within LSE_TOL of
+    the plain version's, -inf and out 0 exactly on empty slices, a row of
+    length 0 merged to exact zeros.  At minicpm-2b's local decode shape
+    (8 rows, H 36/36, dh 64) and the demo LM's (H 12/4).  Returns the
+    `decode_attention_lse` row (its launches to be filled), timed on one
+    slice at minicpm's widths."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference, merge_partials)
+    dev = torch.device("cuda")
+    m_all, n_sl = 32768, 16
+    m = m_all // n_sl
+    # rows: empty, ending inside slice 0 (5, 2047 and 2048 positions),
+    # ragged, and a full row
+    lens_l = [0, 5, 2047, 2048, 9000, 20481, 31000, m_all]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    row = None
+    for h, hkv in ((36, 36), (12, 4)):
+        # drawn on the card: 151M values a cache at minicpm's widths
+        g = torch.Generator(device=dev).manual_seed(h)
+        q, kc, vc = (torch.randn(shape, generator=g, device=dev,
+                                 dtype=torch.bfloat16)
+                     for shape in ((8, h, 64), (8, m_all, hkv, 64),
+                                   (8, m_all, hkv, 64)))
+        ks = [kc[:, r * m:(r + 1) * m].contiguous() for r in range(n_sl)]
+        vs = [vc[:, r * m:(r + 1) * m].contiguous() for r in range(n_sl)]
+        local = [(lens - r * m).clamp(0, m).to(torch.int32)
+                 for r in range(n_sl)]
+        outs, lses, lse_err = [], [], 0.0
+        for r in range(n_sl):
+            o, lse = decode_attention(q, ks[r], vs[r], local[r],
+                                      return_lse=True)
+            po, plse = decode_attention_reference(q, ks[r], vs[r], local[r],
+                                                  return_lse=True)
+            empty = local[r] == 0
+            check(bool((o[empty] == 0).all()) and
+                  bool((lse[empty] == -torch.inf).all()),
+                  f"H {h}/{hkv} slice {r}: an empty row's out is not 0 or "
+                  f"its lse not -inf")
+            live = ~empty
+            if bool(live.any()):
+                lse_err = max(lse_err, (lse[live] - plse[live]).abs()
+                              .max().item())
+                _, share = plain_close(o[live], po[live], "bfloat16")
+                check(share <= 1, f"H {h}/{hkv} slice {r}: partial out "
+                      f"{share:.3f} of the bf16 limit")
+            outs.append(o)
+            lses.append(lse)
+        merged = merge_partials(torch.stack(outs).float(),
+                                torch.stack(lses)).to(torch.bfloat16)
+        whole = decode_attention(q, kc, vc, lens)
+        plain = decode_attention_reference(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        err, share = plain_close(merged, plain, "bfloat16")
+        err_w, share_w = plain_close(merged, whole, "bfloat16")
+        tag = (f"B1 with lse, H {h}/{hkv} dh 64, 8 rows of {m_all} "
+               f"positions in {n_sl} slices of {m}, lengths {lens_l}")
+        check(bool(torch.isfinite(merged).all()), f"{tag}: non-finite")
+        check(bool((merged[0] == 0).all()), f"{tag}: the empty row's "
+              f"merge is not exactly 0")
+        check(share <= 1 and share_w <= 1, f"{tag}: merged vs plain "
+              f"{share:.3f}, vs whole-cache B1 {share_w:.3f} of the limit")
+        check(lse_err <= LSE_TOL, f"{tag}: lse off by {lse_err:.3e} > "
+              f"{LSE_TOL}")
+        print(f"  {tag}: merged vs plain max abs err {err:.3e} ({share:.3f}"
+              f" of the limit), vs B1 on the whole cache {err_w:.3e} "
+              f"({share_w:.3f}); lse max abs err {lse_err:.3e} (limit "
+              f"{LSE_TOL}); empty slices out 0 and lse -inf exactly",
+              flush=True)
+        if h == 36:
+            # one slice at minicpm's local decode shape: slice 0 (rows
+            # of 0, 5, 2047 and 2048 positions, the rest full)
+            ln = local[0]
+            ln_l = ln.tolist()
+            ms = timer.ms(lambda: decode_attention(q, ks[0], vs[0], ln,
+                                                   return_lse=True))
+            plain_ms = timer.ms(lambda: decode_attention_reference(
+                q, ks[0], vs[0], ln, return_lse=True), iters=20)
+            lib_ms, lib = _sdpa_lse_ms(torch, timer, q, ks[0], vs[0], ln)
+            bms, by = bound(ln_l, 0, "bfloat16", 2, 8, h, hkv, 64)
+            bms += 4 * 8 * h / HBM_BYTES_PER_S * 1e3       # the lse
+            row = {"name": "decode_attention_lse", "route": "cuda",
+                   "source": "src/repro_torch/kernels/decode_attention/"
+                             "csrc/decode_attention.cu",
+                   "replaces": "src/repro/kernels/decode_attention/"
+                               "kernel.py:45",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            print(f"  decode_attention_lse @ 8 x 2048 (slice 0, lengths "
+                  f"{ln_l}) H 36/36 dh 64 bf16: {ms * 1e3:.2f} us | bound "
+                  f"{bms * 1e3:.2f} us ({by}) | plain {plain_ms * 1e3:.2f}"
+                  f" us | {lib} {lib_ms * 1e3:.2f} us", flush=True)
+        del q, kc, vc, ks, vs, outs, lses, merged, whole, plain
+        torch.cuda.empty_cache()
+    return row
+
+
+# the slices' log-sum-exp against the plain version's (f32): the kernel's
+# denominator sums P rounded to bf16 (relative 2^-9 a weight), so lse may
+# differ by up to ~2e-3
+LSE_TOL = 1e-2
+
+
+def _sdpa_lse_ms(torch, timer, q, k, v, lens):
+    """One PyTorch call computing attention and its log-sum-exp on the
+    same inputs: the memory-efficient SDPA kernel with an additive mask
+    past each row's length and compute_log_sumexp (rows of length 0 give
+    NaN there; the time is what counts).  (ms, its name)."""
+    m = k.shape[1]
+    bias = torch.zeros(q.shape[0], q.shape[1], 1, m, dtype=q.dtype,
+                       device=q.device)
+    bias.masked_fill_(torch.arange(m, device=q.device)[None, None, None]
+                      >= lens[:, None, None, None], float("-inf"))
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        return (timer.ms(lambda: eff(q4, k4, v4, bias, True)),
+                "SDPA efficient + lse")
+    except RuntimeError as e:
+        import torch.nn.functional as F
+        print(f"  the efficient SDPA with lse refused these inputs ({e}); "
+              f"timing SDPA without the lse", flush=True)
+        return (timer.ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=bias)), "SDPA (no lse)")
+
+
+def b3_offset_phase(torch, timer):
+    """26b.  B3 at the query offsets of ranks 0, 7 and 15 of a 2,048-of-
+    32,768 split (minicpm-2b prefill_32k's local shape: q (2, 2048, 36,
+    64) against K/V (2, 32768, 36, 64)), checked at 4 heads narrowed
+    against the plain version at the bf16 limit, two calls bitwise
+    equal; at an offset of 300 (the diagonal across two key tiles) in
+    bf16 and in f32 (2e-5).  Timed at the full local shape at rank 15's
+    offset (the heaviest).  Returns the `flash_attention_offset` row (its
+    launches to be filled)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    dev = torch.device("cuda")
+    b, sl, s_all, h, dh = 2, 2048, 32768, 36, 64
+    g = torch.Generator(device=dev).manual_seed(2048)
+    q, k, v = (torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+               for shape in ((b, sl, h, dh), (b, s_all, h, dh),
+                             (b, s_all, h, dh)))
+    worst = 0.0
+    cases = [(r * sl, "bfloat16", sl, s_all) for r in (0, 7, 15)]
+    cases += [(300, "bfloat16", 1000, 4096), (300, "float32", 1000, 4096)]
+    for off, dtype, sq, skv in cases:
+        dt = getattr(torch, dtype)
+        qn, kn, vn = (t[:, :n, :4].to(dt) for t, n in ((q, sq), (k, skv),
+                                                       (v, skv)))
+        out = flash_attention(qn, kn, vn, causal=True, q_offset=off)
+        again = flash_attention(qn, kn, vn, causal=True, q_offset=off)
+        ref = attention_reference(qn.transpose(1, 2), kn.transpose(1, 2),
+                                  vn.transpose(1, 2), causal=True,
+                                  q_offset=off).transpose(1, 2)
+        torch.cuda.synchronize()
+        err, share = plain_close(out, ref, dtype)
+        rank = f"rank {off // sl} of 16, " if sq == sl else ""
+        tag = (f"B3 q_offset {off} ({rank}B={b} Sq={sq} Skv={skv} H=4 "
+               f"narrowed dh={dh} {dtype} causal)")
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+        check(share <= 1, f"{tag}: max abs err {err}, {share:.3f} of the "
+              f"limit")
+        check(torch.equal(out, again), f"{tag}: two calls differ")
+        print(f"  {tag}: max abs err {err:.3e} ({share:.3f} of the limit); "
+              f"two calls bitwise equal", flush=True)
+        if dtype == "bfloat16" and sq == sl:
+            worst = max(worst, err)
+    off = 15 * sl
+    ms = timer.ms(lambda: flash_attention(q, k, v, causal=True,
+                                          q_offset=off), iters=20)
+    try:
+        plain_ms = timer.ms(lambda: attention_reference(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, q_offset=off), iters=3)
+        plain = "plain"
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        plain_ms = timer.ms(lambda: [attention_reference(
+            q[:, :, i:i + 4].transpose(1, 2), k[:, :, i:i + 4].transpose(1, 2),
+            v[:, :, i:i + 4].transpose(1, 2), causal=True, q_offset=off)
+            for i in range(0, h, 4)], iters=3)
+        plain = "plain (4 heads a call: the whole ran out of memory)"
+    # rank 15's mask is the lower-right causal one (key j visible to row
+    # i iff j <= i + Skv - Sq): SDPA takes it on its flash backend, here
+    # the only one enabled
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = causal_lower_right(sl, s_all)
+    check(off == s_all - sl, f"rank 15's offset {off} is not Skv - Sq")
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    mine = flash_attention(q, k, v, causal=True, q_offset=off)
+    lib_err, lib_share = plain_close(mine, lib_out.transpose(1, 2),
+                                     "bfloat16")
+    check(lib_share <= 1, f"B3 at offset {off} against SDPA with "
+          f"causal_lower_right: {lib_share:.3f} of the bf16 limit")
+    del lib_out, mine
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=20)
+    pairs = sum(min(i + off + 1, s_all) for i in range(sl))
+    t_ops = 4 * dh * pairs * b * h / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = (2 * b * h * sl * dh + 2 * b * h * s_all * dh) * 2 \
+        / HBM_BYTES_PER_S * 1e3
+    bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    print(f"  flash_attention_offset @ rank 15 of 16 (q_offset {off}), "
+          f"B={b} Sq={sl} Skv={s_all} H={h}/{h} dh={dh} bf16 causal: "
+          f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}) | {plain} "
+          f"{plain_ms * 1e3:.2f} us | SDPA flash (causal_lower_right) "
+          f"{lib_ms * 1e3:.2f} us: B3 {ms / lib_ms:.2f}x SDPA's time "
+          f"(B3 vs SDPA max abs err {lib_err:.3e}, {lib_share:.3f} of the "
+          f"limit)", flush=True)
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_offset", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def start_seqpar_estimate(threads):
+    """26c's fake-mode estimate of minicpm-2b decode_32k (host work only),
+    a dry-run CLI process started on `threads` before phase 23."""
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    return threads.submit(_launchers, [(
+        "-m", "repro_torch.launch.dryrun", "--arch", "minicpm-2b",
+        "--shape", "decode_32k", "--mesh", "single", "--chip", "h100",
+        "--out", os.path.join(out_dir, "fake"))], 600)
+
+
+def seqpar_cells_phase(torch, smi, estimate):
+    """26c.  minicpm-2b decode_32k as rank 0 of a fake (16, 16) group on
+    the card (the KV cache's length sharded over "model": 2,048 of
+    32,768 positions of its 8 rows): its own peak beside the fake-mode
+    estimate, 40 launches of B1 with lse, and the merge's all-gathers
+    (one f32 (out, lse) of 8 x 36 x 65 per layer from each of 16 ranks).
+    Then prefill_32k as rank 15 (its query rows 30,720-32,767 against
+    the whole K/V): 40 launches of B3 at that offset.  The fake group
+    moves no data, so the values are not checked here (the CPU tests
+    hold the layouts against the reference).  Returns (B1-with-lse
+    launches, B3-at-offset launches)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    decode_attention.launches = decode_attention.lse_launches = 0
+    t0 = time.perf_counter()
+    real = dryrun.run_cell("minicpm-2b", "decode_32k", False, out_dir,
+                           device="cuda", chip="h100", verbose=False)
+    b1 = decode_attention.lse_launches
+    b1_alone = decode_attention.launches - b1
+    t1 = time.perf_counter()
+    (rc, stdout, stderr, est_s), = estimate.result()
+    check(rc == 0, f"the fake-mode dry run of minicpm-2b decode_32k "
+          f"failed ({rc}):\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    with open(os.path.join(out_dir, "fake",
+                           "minicpm-2b_decode_32k_single.json")) as f:
+        est = json.load(f)
+    ratio = real["own_peak_bytes"] / est["memory_peak_bytes"]
+    f32 = real["collectives"]["bytes_by_dtype"]["all-gather"].get("f32", 0)
+    want_f32 = 40 * 16 * 8 * 36 * 65 * 4
+    print(f"  minicpm-2b decode_32k, rank 0 of (16, 16): the card run "
+          f"{t1 - t0:.1f} s (its step {real['seconds']:.2f} s; the "
+          f"estimate {est_s:.1f} s in a process of its own) | KV cache "
+          f"{real['kv_cache_bytes_per_rank'] / GIB:.2f} GiB a rank of "
+          f"{real['kv_cache_bytes'] / GIB:.1f} GiB | own peak "
+          f"{real['own_peak_bytes'] / GIB:.2f} GiB vs the fake-mode "
+          f"estimate {est['memory_peak_bytes'] / GIB:.2f} GiB (ratio "
+          f"{ratio:.3f}) | B1 with lse {b1} launches, B1 alone "
+          f"{b1_alone} | the merge's f32 all-gathers "
+          f"{f32} B ({want_f32} predicted) | collectives "
+          f"{real['collectives']['counts']} | {smi}", flush=True)
+    check(b1 == 40 and b1_alone == 0, f"B1 with lse launched {b1} times, "
+          f"B1 alone {b1_alone}: want 40 and 0")
+    check(est["flops"]["per_kernel"]["decode_attention"]["calls"] == 40,
+          "the fake run counted another number of B1 calls")
+    check(f32 == want_f32, f"the merge gathered {f32} f32 bytes, want "
+          f"{want_f32}")
+    check(0.8 <= ratio <= 1.25, f"the card's own peak is {ratio:.3f}x the "
+          f"fake-mode estimate, outside 0.8-1.25x")
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_attention.offset_launches = 0
+    t0 = time.perf_counter()
+    pre = dryrun.run_cell("minicpm-2b", "prefill_32k", False,
+                          os.path.join(out_dir, "rank15"), device="cuda",
+                          chip="h100", verbose=False, rank=15)
+    b3 = flash_attention.offset_launches
+    fl = pre["flops"]
+    print(f"  minicpm-2b prefill_32k, rank 15 of (16, 16): "
+          f"{time.perf_counter() - t0:.1f} s (its step {pre['seconds']:.2f}"
+          f" s) | query offset {pre['query_offset']} | B3 at the offset "
+          f"{b3} launches | max_memory_allocated "
+          f"{pre['max_memory_allocated'] / GIB:.2f} GiB | aten "
+          f"{fl['aten'] / 1e12:.2f} TFLOP (a kernel counts its FLOPs in "
+          f"fake mode only) | {smi}", flush=True)
+    check(pre["query_offset"] == 15 * 2048, f"rank 15's query offset "
+          f"{pre['query_offset']}")
+    check(b3 == 40, f"B3 at an offset launched {b3} times, want 40")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b1, b3
+
+
+def seqpar_paths(torch, timer, smi, estimate):
+    """Phase 26; returns its two kernel rows with their launches."""
+    t0 = time.perf_counter()
+    print("  26a: B1 with its log-sum-exp on 16 length slices", flush=True)
+    lse_row = b1_lse_phase(torch, timer)
+    print("  26b: B3 at query offsets", flush=True)
+    off_row = b3_offset_phase(torch, timer)
+    print(f"  26a/26b took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("  26c: minicpm-2b's sequence-parallel cells on the card",
+          flush=True)
+    lse_row["launches"], off_row["launches"] = seqpar_cells_phase(
+        torch, smi, estimate)
+    return [lse_row, off_row]
+
+
 def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
@@ -4613,12 +4996,15 @@ def main(argv):
     only_paper = argv == ["--phase", "23"]
     only_mesh = argv == ["--phase", "24"]
     only_lint = argv == ["--phase", "25"]
+    only_seqpar = argv == ["--phase", "26"]
     if argv and not (only_2c or only_new or only_plane or only_family
                      or only_branch or only_slice8 or only_family_train
-                     or only_paper or only_mesh or only_lint):
+                     or only_paper or only_mesh or only_lint
+                     or only_seqpar):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
               "--phase 14 | --phase 17 | --phase 20 | --phase 21 | "
-              "--phase 23 | --phase 24 | --phase 25]", file=sys.stderr)
+              "--phase 23 | --phase 24 | --phase 25 | --phase 26]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4729,6 +5115,15 @@ def main(argv):
         phase()
         print("phase 25 alone: no result line")
         return 0
+    if only_seqpar:
+        phase(SEQPAR_TITLE)
+        with ThreadPoolExecutor(1) as threads:
+            seq_rows = seqpar_paths(torch, timer, smi,
+                                    start_seqpar_estimate(threads))
+        phase()
+        print(json.dumps({"kernels": seq_rows}))
+        print("phase 26 alone: no result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -4818,8 +5213,10 @@ def main(argv):
     rows.extend(fam_rows.values())
     torch.cuda.empty_cache()
 
-    est_threads = ThreadPoolExecutor(1)       # 24c's estimate, beside 23
+    # 24c's and 26c's fake-mode estimates, beside phase 23 and 24
+    est_threads = ThreadPoolExecutor(2)
     estimate = start_estimate(est_threads)
+    seq_estimate = start_seqpar_estimate(est_threads)
     phase(PAPER_TITLE)
     paper = paper_paths(torch, block_s, smi)
     rows[0]["launches"] += paper["B1"]       # serve_batch (dh 16 -> 64)
@@ -4829,7 +5226,6 @@ def main(argv):
 
     phase(MESH_TITLE)
     mesh = mesh_paths(torch, smi, estimate)
-    est_threads.shutdown()
     rows[2]["launches"] += mesh["B3"]        # 24a, through local_map
     named = {r["name"]: r for r in rows}
     named["flash_attention_dh160"]["launches"] += mesh["B3_dh160"]
@@ -4844,6 +5240,12 @@ def main(argv):
     rows[1]["launches"] += lint["B2"]        # configs (dh 16, which the
     rows[2]["launches"] += lint["B3"]        # kernels run zero-padded to
     rows[3]["launches"] += lint["B4"]        # 64)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(SEQPAR_TITLE)
+    rows.extend(seqpar_paths(torch, timer, smi, seq_estimate))
+    est_threads.shutdown()
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")
 

@@ -180,9 +180,22 @@ def write_rows(cache, rows, cols, val):
     """cache[rows, cols] = val, in place.  A DTensor cache is written
     shard by shard: each rank writes its own rows (val placed as the
     cache, `rows` indexing the rank's rows, `cols` the same on every
-    rank)."""
+    rank).  A cache whose length (dim 1) is sharded over "model" is
+    written only by the rank that holds the position (`_write_slice`)."""
     if not is_dtensor(cache):
         cache[rows, cols] = val.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    names = mesh.mesh_dim_names or ()
+    md = names.index("model") if "model" in names else None
+    if md is not None and cache.placements[md] == Shard(1):
+        want = tuple(Replicate() if i == md else p
+                     for i, p in enumerate(cache.placements))
+        val = val.redistribute(mesh, want)
+        local = cache.to_local()
+        _write_slice(local, cols, val.to_local(),
+                     mesh.get_local_rank(md) * local.shape[1])
         return
     val = val.redistribute(cache.device_mesh, cache.placements)
     local, v = cache.to_local(), val.to_local()
@@ -192,6 +205,56 @@ def write_rows(cache, rows, cols, val):
     local_rows = torch.arange(local.shape[0], device=local.device)
     local_rows = local_rows.reshape((-1,) + (1,) * (rows.dim() - 1))
     local[local_rows, cols] = v.to(local.dtype)
+
+
+def _write_slice(local, cols, v, start: int):
+    """Rows' new positions `cols` (B, s), contiguous in each row, written
+    into a rank's slice `local` (B, m, ...) of positions [start, start +
+    m); a position outside the slice writes nothing.  No host read of
+    `cols`: one new position per row (decode) is written at its index
+    clamped into the slice under a mask (a masked-out row rewrites its
+    own value); several take a `where` over the slice, each position
+    gathering the value it receives, if any."""
+    b, m = local.shape[0], local.shape[1]
+    rows = torch.arange(b, device=local.device)
+    v = v.to(local.dtype)
+    if cols.shape[0] != b:
+        # a scalar offset expanded over the global rows: the same columns
+        # for every row
+        cols = cols[:1].expand(b, cols.shape[1])
+    if cols.shape[1] == 1:
+        idx = cols[:, 0] - start
+        mine = (idx >= 0) & (idx < m)
+        idx = idx.clamp(0, m - 1)
+        keep = mine.reshape((b,) + (1,) * (v.dim() - 2))
+        local[rows, idx] = torch.where(keep, v[:, 0], local[rows, idx])
+        return
+    src = torch.arange(start, start + m, device=local.device)[None] \
+        - cols[:, :1]                                   # (B, m)
+    mine = (src >= 0) & (src < cols.shape[1])
+    got = v.gather(1, src.clamp(0, cols.shape[1] - 1).reshape(
+        (b, m) + (1,) * (v.dim() - 2)).expand((b, m) + v.shape[2:]))
+    keep = mine.reshape((b, m) + (1,) * (v.dim() - 2))
+    local.copy_(torch.where(keep, got, local))
+
+
+def rows_matmul(x, w):
+    """x @ w for activations x (..., d) and a weight w whole on every mesh
+    dim (replicated), on each rank's own rows: under `local_map`, so that
+    DTensor never flattens x's leading dims (a batch and a sequence both
+    sharded flatten to a strided shard, whose propagation reads a value
+    on the host under fake tensors).  The weight's gradient is a partial
+    sum where x is sharded.  Plain tensors: x @ w."""
+    if not is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(torch.matmul, out_placements=list(x.placements),
+                     in_placements=(tuple(x.placements),
+                                    tuple(w.placements)),
+                     in_grad_placements=(tuple(x.placements),
+                                         weight_grad_placements(w, x)),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=False)(x, w)
 
 
 def weight_grad_placements(w, rows):

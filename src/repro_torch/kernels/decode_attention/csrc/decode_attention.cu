@@ -60,7 +60,10 @@
 // workspace the wrapper allocates.  Kernel 2, one CTA per (query head, row)
 // and one thread per dim, folds splits 0 .. ceil(kv_len / C) - 1 in that
 // order (max first, then the weighted sums with fmaf), skipping empty
-// splits; rows with kv_len == 0 write exact zeros.  It is launched as a
+// splits; rows with kv_len == 0 write exact zeros.  On request it also
+// writes each (row, query head)'s log-sum-exp of the scaled scores, f32,
+// m + log l (-inf for kv_len == 0): the partial a caller merges with
+// other slices of the same row (a cache whose length is sharded).  It is launched as a
 // programmatic dependent of kernel 1 (every split CTA signals at its
 // start), so its launch overlaps the splits and it waits on
 // griddepcontrol.wait before it reads the workspace; the first 16 splits'
@@ -482,8 +485,8 @@ __global__ void __launch_bounds__(DH)
     decode_merge_kernel(const float* __restrict__ acc,
                         const float* __restrict__ ml,
                         const int32_t* __restrict__ kv_len,
-                        T* __restrict__ out, int hkv, int group, int cap,
-                        int n_split) {
+                        T* __restrict__ out, float* __restrict__ lse,
+                        int hkv, int group, int cap, int n_split) {
   extern __shared__ float2 ml_s[];
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int hk = h / group, g = h - hk * group;
@@ -526,10 +529,13 @@ __global__ void __launch_bounds__(DH)
   }
   out[((size_t)b * hkv * group + h) * DH + d] =
       from_f32<T>(len > 0 ? x / l : 0.f);
+  if (lse != nullptr && d == 0)
+    lse[(size_t)b * hkv * group + h] = len > 0 ? mx + logf(l) : -INFINITY;
 }
 
 template <typename T, int DH, bool PAGED>
-int launch_typed(const SplitArgs& a, void* out, cudaStream_t stream) {
+int launch_typed(const SplitArgs& a, void* out, float* lse,
+                 cudaStream_t stream) {
   auto kern = decode_split_kernel<T, DH, PAGED>;
   const size_t smem = Plan<T, DH>::bytes(a.group);
   const size_t merge_smem = 3 * sizeof(float) * (size_t)a.n_split;
@@ -557,17 +563,17 @@ int launch_typed(const SplitArgs& a, void* out, cudaStream_t stream) {
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, decode_merge_kernel<T, DH>,
                                  (const float*)a.acc, (const float*)a.ml,
-                                 a.kv_len, static_cast<T*>(out), a.hkv,
-                                 a.group, a.cap, a.n_split);
+                                 a.kv_len, static_cast<T*>(out), lse,
+                                 a.hkv, a.group, a.cap, a.n_split);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 template <bool PAGED>
-int dispatch(const SplitArgs& a, void* out, int dh, int dtype,
+int dispatch(const SplitArgs& a, void* out, float* lse, int dh, int dtype,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DA_CASE(T, D) \
-  if (dh == D) return launch_typed<T, D, PAGED>(a, out, s)
+  if (dh == D) return launch_typed<T, D, PAGED>(a, out, lse, s)
   if (dtype == 0) {
     DA_CASE(float, 64);
     DA_CASE(float, 128);
@@ -594,17 +600,20 @@ long long decode_attention_workspace(int batch, int heads, int cap, int dh) {
 }
 
 // q (B, H, dh); k/v (B, M, Hkv, dh); kv_len (B,) int32; out (B, H, dh);
-// ws f32 of decode_attention_workspace(B, H, M, dh) elements.
+// ws f32 of decode_attention_workspace(B, H, M, dh) elements; lse (B, H)
+// f32, or null for none.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* kv_len, void* ws, void* out,
                             int batch, int hkv, int group, int m, int dh,
-                            int dtype, float scale, void* stream) {
+                            int dtype, float scale, void* stream,
+                            void* lse) {
   const int n_split = (m + C - 1) / C;
   float* acc = static_cast<float*>(ws);
   SplitArgs a{q, k, v, static_cast<const int32_t*>(kv_len), nullptr, acc,
               acc + (size_t)batch * hkv * group * n_split * dh, batch, hkv,
               group, m, 1, 0, n_split, scale};
-  return dispatch<false>(a, out, dh, dtype, stream);
+  return dispatch<false>(a, out, static_cast<float*>(lse), dh, dtype,
+                         stream);
 }
 
 // q (B, H, dh); k/v pools (P+1, ps, Hkv, dh); ptab (B, max_pages) int32;
@@ -622,7 +631,7 @@ int paged_decode_attention_launch(const void* q, const void* k,
               static_cast<const int32_t*>(ptab), acc,
               acc + (size_t)batch * hkv * group * n_split * dh, batch, hkv,
               group, cap, page_size, max_pages, n_split, scale};
-  return dispatch<true>(a, out, dh, dtype, stream);
+  return dispatch<true>(a, out, nullptr, dh, dtype, stream);
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@ def _declare(lib):
     lib.decode_attention_workspace.argtypes = [i, i, i, i]
     lib.decode_attention_workspace.restype = ctypes.c_longlong
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                            i, i, ctypes.c_float, p]
+                                            i, i, ctypes.c_float, p, p]
     lib.decode_attention_launch.restype = i
     lib.paged_decode_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i,
                                                   i, i, i, i, i,
@@ -84,9 +84,11 @@ def _workspace(lib, q, cap):
                        dtype=torch.float32, device=q.device)
 
 
-def decode_attention_fwd(q, k_cache, v_cache, kv_len):
+def decode_attention_fwd(q, k_cache, v_cache, kv_len, *, lse=False):
     """B1.  q (B, H, dh); k/v_cache (B, M, Hkv, dh); kv_len (B,) int32 on
-    the card.  Returns (B, H, dh) in q's dtype."""
+    the card.  Returns (B, H, dh) in q's dtype; with `lse` also the rows'
+    log-sum-exp of the scaled scores, (B, H) f32, -inf where kv_len is
+    0 (the same launch: the merge kernel stores it)."""
     b, h, dh = q.shape
     m, hkv = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape != (b, m, hkv, dh) or v_cache.shape != k_cache.shape:
@@ -103,13 +105,17 @@ def decode_attention_fwd(q, k_cache, v_cache, kv_len):
     lib = LIBRARY.load()
     ws = _workspace(lib, q, m)
     out = torch.empty_like(q)
+    row_lse = torch.empty(b, h, dtype=torch.float32, device=q.device) \
+        if lse else None
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(), b, hkv, h // hkv,
         m, run_dh, _DTYPES[q.dtype], dh ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        row_lse.data_ptr() if lse else None)
     raise_on(err, "decode_attention")
-    return out if run_dh == dh else out[..., :dh].contiguous()
+    out = out if run_dh == dh else out[..., :dh].contiguous()
+    return (out, row_lse) if lse else out
 
 
 def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, kv_len):

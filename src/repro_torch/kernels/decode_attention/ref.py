@@ -15,9 +15,12 @@ from __future__ import annotations
 import torch
 
 
-def decode_attention_reference(q, k_cache, v_cache, kv_len):
+def decode_attention_reference(q, k_cache, v_cache, kv_len,
+                               return_lse: bool = False):
     """q (B, H, dh); k/v_cache (B, M, Hkv, dh) (model layout); kv_len a
-    scalar or (B,).  Returns (B, H, dh) in q's dtype."""
+    scalar or (B,).  Returns (B, H, dh) in q's dtype; with `return_lse`
+    also the log-sum-exp of each (row, head)'s scaled scores below
+    kv_len, (B, H) f32, -inf where kv_len is 0."""
     b, h, dh = q.shape
     m, hkv = k_cache.shape[1], k_cache.shape[2]
     k = k_cache.transpose(1, 2).float()            # (B, Hkv, M, dh)
@@ -29,10 +32,30 @@ def decode_attention_reference(q, k_cache, v_cache, kv_len):
     kv_len = torch.as_tensor(kv_len, device=q.device)
     lens = kv_len[:, None, None] if kv_len.dim() else kv_len
     valid = torch.arange(m, device=q.device) < lens
-    s = torch.where(valid, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhk,bhkd->bhd", p, v)
-    return torch.where(lens > 0, out, 0.0).to(q.dtype)
+    p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
+    out = torch.where(lens > 0, torch.einsum("bhk,bhkd->bhd", p, v),
+                      0.0).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(torch.where(valid, s, -torch.inf), dim=-1)
+
+
+def merge_partials(outs, lses):
+    """The attention of one query over a cache split into slices, from
+    each slice's normalised partial: outs (R, ..., dh), lses (R, ...) f32
+    (the slices' log-sum-exps, -inf for an empty slice).  out = sum_r
+    exp(lse_r - max) out_r / sum_r exp(lse_r - max), in f32; exact zeros
+    where every slice is empty.  Returns outs' dtype.  (The reference gets
+    this merge from XLA's partitioning of the softmax's reductions.)"""
+    mx = lses.amax(0)
+    live = lses > -torch.inf
+    w = torch.where(live, torch.exp(lses - torch.where(live, mx, 0.0)),
+                    0.0)
+    den = w.sum(0)
+    out = (w[..., None] * outs.float()).sum(0)
+    out = torch.where(den[..., None] > 0,
+                      out / torch.where(den > 0, den, 1.0)[..., None], 0.0)
+    return out.to(outs.dtype)
 
 
 def gather_pages(pool, page_table):

@@ -5,8 +5,12 @@
 //   B3  src/repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel
 // and computes what it computes: softmax(q k^T * dh**-0.5) v per (batch,
 // query head), kv head = h / (H / Hkv), causal mask top-left (key position
-// <= query position), online softmax with an f32 running max, denominator
-// and accumulator.  Unlike the Pallas wrapper it takes any Sq and Skv and
+// <= query position + q_offset), online softmax with an f32 running max,
+// denominator
+// and accumulator.  q_offset is the absolute position of query row 0: a
+// rank holding rows [r S / N, (r + 1) S / N) of a sequence-sharded q runs
+// them against the whole K/V at q_offset = r S / N (0 for a whole q).
+// Unlike the Pallas wrapper it takes any Sq and Skv and
 // masks the ragged edge itself: keys >= Skv get exactly zero weight in both
 // modes (no padding copies), and query rows >= Sq are never written.
 // Strides are arguments, so the model's (B, S, H, dh) layout and the
@@ -38,7 +42,9 @@
 //      shared memory, both operands K-major, into registers;
 //   2. masks S on the item's last tile only (the diagonal tile in causal
 //      mode, the ragged tile otherwise; tiles above the diagonal are never
-//      loaded) and takes the online-softmax step in registers: the row
+//      loaded; at a q_offset that is not a multiple of 128 the diagonal
+//      crosses two tiles, and both are masked) and takes the
+//      online-softmax step in registers: the row
 //      max over the 4 lanes that share a row, exp2 with dh**-0.5 * log2(e)
 //      folded in, the f32 denominator summed per thread;
 //   3. rounds P to bf16 in registers (the S accumulator layout is the
@@ -76,7 +82,7 @@ struct Params {
   // element strides of (batch, head, position); the head dim is contiguous
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
       o_ss;
-  int sq, skv, group, causal;
+  int sq, skv, group, causal, q_offset;
   float scale;
 };
 
@@ -145,7 +151,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
     l_s[i] = 0.f;
   }
 
-  const int kend = p.causal ? min(p.skv, q0 + F_BQ) : p.skv;
+  const int kend = p.causal ? min(p.skv, q0 + F_BQ + p.q_offset) : p.skv;
   for (int k0 = 0; k0 < kend; k0 += F_BK) {
     __syncthreads();  // the previous tile's K/V reads are done
     load_tile<DH, L::LD>(k_s, kg, p.k_ss, k0, p.skv);
@@ -176,7 +182,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int kpos = k0 + lane + 32 * half;
-        ok[half] = kpos < p.skv && (!p.causal || kpos <= qpos);
+        ok[half] =
+            kpos < p.skv && (!p.causal || kpos <= qpos + p.q_offset);
         s[half] = ok[half] ? s_s[row * L::SLD + lane + 32 * half] * p.scale
                            : NEG_INF;
         mx = fmaxf(mx, s[half]);
@@ -252,7 +259,7 @@ struct TcArgs {
   void* o;
   int64_t o_sb, o_sh, o_ss;  // element strides of the output
   int heads, batch, n_qt;    // n_qt query tiles of BQ rows per head
-  int sq, skv, group, causal;
+  int sq, skv, group, causal, q_offset;
   float scale_log2;  // dh**-0.5 * log2(e)
 };
 
@@ -497,8 +504,9 @@ __device__ __forceinline__ float ex2(float x) {
 // r0 + 8 * ((i >> 1) & 1) and column 8 * (i >> 2) + c0 + (i & 1), with
 // r0 = 16 * warp + lane / 4 and c0 = 2 * (lane % 4): a row's 128 columns
 // lie in the 4 lanes of a quad.  On the last tile (`edge`) keys >= Skv
-// and, in causal mode, keys past the row get -inf; kpos0 is the key
-// position of column c0 and qpos0 the query position of row r0.  Updates
+// and, in causal mode, keys past the row (its position + q_offset) get
+// -inf; kpos0 is the key position of column c0 and qpos0 the query
+// position of row r0.  Updates
 // the running max m (raw scores) and this thread's share l of the
 // denominator, writes P rounded to bf16 pairs (the A fragments of P V:
 // its k-step over keys 16 kk .. 16 kk + 15 takes pk[4 kk .. 4 kk + 3])
@@ -513,7 +521,8 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
     for (int i = 0; i < 64; ++i) {
       const int kpos = kpos0 + 8 * (i >> 2) + (i & 1);
       const int qpos = qpos0 + 8 * ((i >> 1) & 1);
-      if (kpos >= a.skv || (a.causal && kpos > qpos)) sc[i] = -INFINITY;
+      if (kpos >= a.skv || (a.causal && kpos > qpos + a.q_offset))
+        sc[i] = -INFINITY;
     }
   }
   float mx[2] = {m[0], m[1]};
@@ -581,11 +590,12 @@ __device__ __forceinline__ void issue_values(float (&o)[L::DH / 2],
 
 // One consumer's view of the CTA and of its current work item: shared
 // memory addresses, the item's first tile in the CTA's stream of K/V
-// tiles (g0, which sets ring stage and phase), its tile count and the
-// query position of row r0 (see softmax_step)
+// tiles (g0, which sets ring stage and phase), its tile count, the
+// first tile that needs the mask and the query position of row r0 (see
+// softmax_step)
 struct Consumer {
   uint32_t base, q_tile, q_empty, k_full, v_full, empty;
-  int c0, g0, n_tiles, qrow0;
+  int c0, g0, n_tiles, mask_from, qrow0;
 };
 
 // Key tile it >= 1 of the item: S = Q K^T of tile it and O += P V of tile
@@ -609,8 +619,8 @@ __device__ __forceinline__ void overlapped_tile(
   wgmma_wait<1>();
   fence_regs(sc);
   if (it == c.n_tiles - 1) mbar_arrive(c.q_empty);
-  softmax_step(sc, m, l, alpha, p_next, it == c.n_tiles - 1,
-               it * BK + c.c0, c.qrow0, a);
+  softmax_step(sc, m, l, alpha, p_next, it >= c.mask_from, it * BK + c.c0,
+               c.qrow0, a);
   wgmma_wait<0>();
   fence_regs(o);
   mbar_arrive(c.empty + 8 * sp);
@@ -644,7 +654,7 @@ __device__ __forceinline__ Item work_item(int w, const TcArgs& a) {
   it.q0 = (a.n_qt - 1 - w / hb) * BQ;
   it.h = (w % hb) % a.heads;
   it.b = (w % hb) / a.heads;
-  const int kend = a.causal ? min(a.skv, it.q0 + BQ) : a.skv;
+  const int kend = a.causal ? min(a.skv, it.q0 + BQ + a.q_offset) : a.skv;
   it.n_tiles = (kend + BK - 1) / BK;
   return it;
 }
@@ -742,6 +752,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       const Item item = work_item(w, a);
       c.n_tiles = item.n_tiles;
       c.qrow0 = item.q0 + 64 * cw + r0;
+      // tile it holds a key past this consumer's first row iff
+      // (it + 1) BK > q + q_offset + 1: only the last tile at q_offset 0
+      c.mask_from = a.causal ? min(c.n_tiles - 1,
+                                   (item.q0 + 64 * cw + a.q_offset + 1) / BK)
+                             : c.n_tiles - 1;
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;
@@ -754,7 +769,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<0>();
       fence_regs(sc);
       if (c.n_tiles == 1) mbar_arrive(c.q_empty);
-      softmax_step(sc, m, l, alpha, pa, c.n_tiles == 1, c.c0, c.qrow0, a);
+      softmax_step(sc, m, l, alpha, pa, c.mask_from == 0, c.c0, c.qrow0, a);
       int it = 1;
       for (; it + 1 < c.n_tiles; it += 2) {
         overlapped_tile<L>(it, c, a, sc, o, m, l, pa, pb);
@@ -844,7 +859,7 @@ int encode(CUtensorMap* map, const void* ptr, int dh, int s, int heads,
 template <class L>
 int launch_tc(const void* const* ptrs, void* o, const int64_t* st,
               int batch, int heads, int group, int sq, int skv, int causal,
-              float scale, cudaStream_t stream) {
+              int q_offset, float scale, cudaStream_t stream) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const int err = encode(&maps[i], ptrs[i], L::DH, i ? skv : sq,
@@ -865,6 +880,7 @@ int launch_tc(const void* const* ptrs, void* o, const int64_t* st,
   a.skv = skv;
   a.group = group;
   a.causal = causal;
+  a.q_offset = q_offset;
   a.scale_log2 = scale * 1.4426950408889634f;
   auto kern = flash_fwd_tc<L>;
   const int smem = (int)L::BYTES;
@@ -892,24 +908,25 @@ extern "C" {
 // base pointer and element strides (batch, head, position) in `strides`
 // (12 values: q, k, v, o).  dtype: 0 = float32, 1 = bfloat16.  Returns a
 // cudaError_t (0 = launched), or 10000 + a CUresult if a bf16 tensor map
-// could not be encoded.
+// could not be encoded.  causal: key j is masked for query row i iff
+// j > i + q_offset.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const int64_t* strides, int batch,
                            int heads, int group, int sq, int skv, int dh,
-                           int dtype, int causal, float scale,
-                           void* stream) {
+                           int dtype, int causal, float scale, void* stream,
+                           int q_offset) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const void* ptrs[3] = {q, k, v};
     if (dh == 64)
       return launch_tc<Tc64>(ptrs, o, strides, batch, heads, group, sq, skv,
-                             causal, scale, s);
+                             causal, q_offset, scale, s);
     if (dh == 128)
       return launch_tc<Tc128>(ptrs, o, strides, batch, heads, group, sq,
-                              skv, causal, scale, s);
+                              skv, causal, q_offset, scale, s);
     if (dh == 160)
       return launch_tc<Tc160>(ptrs, o, strides, batch, heads, group, sq,
-                              skv, causal, scale, s);
+                              skv, causal, q_offset, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -933,6 +950,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.skv = skv;
   p.group = group;
   p.causal = causal;
+  p.q_offset = q_offset;
   p.scale = scale;
   if (dtype == 0 && dh == 64) return launch_f32<64>(p, batch, heads, s);
   if (dtype == 0 && dh == 128) return launch_f32<128>(p, batch, heads, s);

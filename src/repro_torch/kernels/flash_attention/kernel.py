@@ -29,7 +29,7 @@ _HEAD_DIMS = (64, 128, 160)
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                           i, i, ctypes.c_float, p]
+                                           i, i, ctypes.c_float, p, i]
     lib.flash_attention_launch.restype = i
 
 
@@ -80,11 +80,12 @@ def _strides(t):
     return [s if n > 1 else vec for n, s in zip(t.shape[:3], t.stride()[:3])]
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool):
+def flash_attention_fwd(q, k, v, *, causal: bool, q_offset: int = 0):
     """B3.  q (B, H, Sq, dh); k, v (B, Hkv, Skv, dh), any strides with the
     head dim contiguous (a head-major view of the (B, S, H, dh) model
     layout goes in as it is).  Causal means key position <= query
-    position.  Returns a (B, Sq, H, dh)-contiguous tensor viewed as
+    position + q_offset (q's rows sit at q_offset, q_offset + 1, ... of
+    the keys' positions).  Returns a (B, Sq, H, dh)-contiguous tensor viewed as
     (B, H, Sq, dh), in q's dtype.  A head dim below 64 runs on the 64
     instance, zero-padded, at its own scale dh**-0.5."""
     b, h, sq, dh = q.shape
@@ -94,6 +95,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool):
                          f"v {tuple(v.shape)} do not fit")
     if sq == 0 or skv == 0:
         raise ValueError("flash attention needs Sq > 0 and Skv > 0")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
     run_dh = instance_head_dim(dh, _HEAD_DIMS, "flash attention")
     q, k, v = (pad_head_dim(t, run_dh) for t in (q, k, v))
     _check(q, k, v)
@@ -105,7 +108,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool):
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, h, h // hkv, sq, skv, run_dh, _DTYPES[q.dtype], int(causal),
-        dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        int(q_offset))
     raise_on(err, "flash_attention")
     if run_dh != dh:
         out = out[..., :dh].transpose(1, 2).contiguous().transpose(1, 2)

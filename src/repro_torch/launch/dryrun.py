@@ -15,9 +15,20 @@ For each (arch x shape) cell this script:
      token against a seq_len cache or recurrent state);
   4. records, per rank: peak memory by category (MemTracker), FLOPs
      (the aten ops rank 0 runs, counted by `LocalFlopCounter`, plus the
-     kernels' own counts, `kernels/_boundary.COUNTS`), collective bytes
-     (`analysis.collectives`), and the analytic roofline priced at
+     kernels' own counts, `kernels/_boundary.COUNTS`), HBM bytes (each
+     aten op's inputs and outputs, `LocalByteCounter`, plus the kernels'
+     own), collective bytes (`analysis.collectives`), the measured
+     roofline of those counts and the analytic roofline, both priced at
      `--chip`, into a JSON under `--out` (default build/dryrun/).
+
+The transformer cells take the reference's sequence parallelism on
+"model": the residual stream shards its sequence there (Megatron-SP);
+where the heads do not divide the axis q keeps that split and each model
+rank runs its query rows at their offset, so the ranks of a causal split
+do unequal work (rank 0 the least): a cell records the counted rank's
+query offset and the kernels' FLOPs of every model rank, from the fake
+count at each rank's offset, beside rank 0's; the decode cells shard the
+KV cache's length over "model".
 
 By default nothing is allocated: the state and the step run on fake
 tensors (FakeTensorMode, device "cpu"), so the kernels take their fake
@@ -53,11 +64,12 @@ import traceback
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.analysis.analytic import analytic_roofline
+from repro_torch.analysis.analytic import analytic_roofline, useful_flops
 from repro_torch.analysis.collectives import (CollectiveCounter,
                                               HostSyncCounter,
                                               collective_bytes_loop_aware,
                                               sync_debug_warnings)
+from repro_torch.analysis.roofline import roofline
 from repro_torch.core.system import H100_SXM, ChipSpec
 from repro_torch.distributed.hints import on_mesh
 from repro_torch.distributed.sharding import (SDS, batch_axes, batch_specs,
@@ -100,6 +112,56 @@ def _dev(device: str) -> str:
     fake CUDA tensors of every op, and MemTracker's split of fake CUDA
     tensors between devices differs between torch versions)."""
     return "cuda" if device == "cuda" else "cpu"
+
+
+class LocalByteCounter(TorchDispatchMode):
+    """HBM bytes of the aten ops this rank runs, as `LocalFlopCounter`
+    takes its ops: each op's tensor inputs read once and outputs written
+    once.  Views, allocations and collectives (the wire term counts
+    those) move nothing here; a kernel's bytes come from its fake count
+    (`_boundary.COUNTS`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __enter__(self):
+        from torch._guards import active_fake_mode
+        self._entry_fake = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._guards import active_fake_mode
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_leaves
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if active_fake_mode() is self._entry_fake and _moves_bytes(func):
+            name = func._schema.name.split("::")[-1]
+            if name in _SLICE_WRITES:
+                # an in-place write of a slice: the indices and values
+                # read, as many bytes written, the rest of `self` untouched
+                args, out = args[1:], args[_SLICE_WRITES[name]]
+            self.bytes += sum(t.numel() * t.element_size() for t in
+                              tree_leaves((args, kwargs, out))
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+# in-place ops that write a slice of their first argument -> the index of
+# the argument that holds the values
+_SLICE_WRITES = {"index_put_": 2, "_index_put_impl_": 2, "index_copy_": 3,
+                 "scatter_": 3}
+
+
+def _moves_bytes(func) -> bool:
+    if func.namespace != "aten" or func.is_view:
+        return False
+    name = func._schema.name.split("::")[-1]
+    return not (name.startswith("empty") or name in ("detach", "alias",
+                                                     "lift_fresh"))
 
 
 class LocalFlopCounter(TorchDispatchMode):
@@ -239,14 +301,19 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
                                     device=_dev(device))
     cshapes = _sds_tree(cache_fake)
     cspecs = cache_specs(cfg, multi_pod=multi_pod)
+    # transformer KV cache: shard its length over "model" (sequence-
+    # parallel decode attention), as the reference's dry run places it;
+    # recurrent states keep their channel specs
     if "k" in cshapes:
-        # the reference shards the cache length over "model"; here it
-        # stays replicated there (ROADMAP A7b: B1's split-K merge over
-        # "model")
-        meta["notes"] = ("KV cache length replicated on 'model' (the "
-                         "reference shards it there); each rank holds "
-                         "its rows' whole cache")
+        cspecs = {"k": (None, bspec[0], "model"),
+                  "v": (None, bspec[0], "model"), "pos": ()}
     cache = make_local(cshapes, cspecs, mesh, _cache_maker(make))
+    if "k" in cshapes:
+        meta["kv_cache_bytes"] = sum(
+            math.prod(cshapes[n].shape) * cshapes[n].dtype.itemsize
+            for n in ("k", "v"))
+        meta["kv_cache_bytes_per_rank"] = sum(
+            _boundary.nbytes(cache[n].to_local()) for n in ("k", "v"))
     # the position is one scalar every rank reads
     cache["pos"] = cache["pos"].to_local()
     tokens = make_local(SDS(_tok_shape(cfg, ikind, global_batch, 1),
@@ -358,8 +425,9 @@ def measure(fn, args, device: str) -> dict:
         before = torch.cuda.memory_allocated()
         state = sum(t.numel() * t.element_size() for t in _locals(args))
     flops, coll = LocalFlopCounter(), CollectiveCounter()
+    nbytes = LocalByteCounter()
     t0 = time.perf_counter()
-    with _separate_shape_inference(), mt, flops, coll:
+    with _separate_shape_inference(), mt, flops, nbytes, coll:
         fn(*args)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -368,16 +436,21 @@ def measure(fn, args, device: str) -> dict:
     mem = {str(dev): {str(k): int(v) for k, v in snap.items()}
            for dev, snap in peak.items()}
     kernels = {k: dict(v) for k, v in _boundary.COUNTS.items()}
+    splits = _boundary.SPLITS["calls"]
     out = {"seconds": seconds, "memory_peak": mem,
            "memory_peak_bytes": max((v.get("Total", 0)
                                      for v in mem.values()), default=0),
            "flops": {"aten": flops.flops,
                      "kernels": sum(v["flops"] for v in kernels.values()),
                      "per_kernel": kernels},
+           "bytes": {"aten": nbytes.bytes,
+                     "kernels": sum(v["bytes"] for v in kernels.values())},
+           "query_splits": splits,
            "collectives": coll.collective_bytes(),
            "collectives_loop_aware": collective_bytes_loop_aware(
                coll.records)}
     out["flops"]["total"] = out["flops"]["aten"] + out["flops"]["kernels"]
+    out["bytes"]["total"] = out["bytes"]["aten"] + out["bytes"]["kernels"]
     if device == "cuda":
         peak = int(torch.cuda.max_memory_allocated())
         out["max_memory_allocated"] = peak
@@ -394,11 +467,11 @@ def _fake_ctx(device: str):
     return FakeTensorMode()
 
 
-def _mesh_setup(multi_pod: bool, device: str, mesh_shape=None):
+def _mesh_setup(multi_pod: bool, device: str, mesh_shape=None, rank=0):
     shape = mesh_shape or ((2, 16, 16) if multi_pod else (16, 16))
     destroy()
     init_process_group(_dev(device), fake=True,
-                       world_size=math.prod(shape))
+                       world_size=math.prod(shape), rank=rank)
     return make_production_mesh(multi_pod=multi_pod, shape=shape,
                                 device_type=_dev(device))
 
@@ -411,23 +484,48 @@ def _write(result: dict, out_dir: str, tag: str) -> str:
     return path
 
 
+def model_rank_flops(m: dict, model_shards: int) -> dict:
+    """The kernels' FLOPs of each model rank: a kernel whose fake calls
+    ran inside a query split counted every rank's work at its own offset;
+    any other does the same work on every model rank."""
+    per = [0] * model_shards
+    for k in m["flops"]["per_kernel"].values():
+        by = k.get("flops_by_model_rank") or [k["flops"]] * model_shards
+        per = [a + b for a, b in zip(per, by)]
+    mean = sum(per) / model_shards
+    return {"kernels_by_model_rank": per,
+            "kernels_heaviest_model_rank": max(per),
+            "kernels_mean_model_rank": mean,
+            "total_mean_model_rank": m["flops"]["aten"] + mean}
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_dir: str = RESULTS_DIR, device: str = "fake",
              chip: str = "default", verbose: bool = True, mesh_shape=None,
-             reduced: bool = False, dims=None):
+             reduced: bool = False, dims=None, rank: int = 0):
     """Build and measure one cell; write and return its JSON dict.
-    `mesh_shape`, `reduced` and `dims` make the tests' small cells."""
+    `mesh_shape`, `reduced` and `dims` make the tests' small cells;
+    `rank` counts another rank's program than rank 0's."""
     t0 = time.perf_counter()
-    mesh = _mesh_setup(multi_pod, device, mesh_shape)
+    mesh = _mesh_setup(multi_pod, device, mesh_shape, rank)
     try:
         with _fake_ctx(device):
             fn, args, meta = build_cell(arch, shape_name, mesh, multi_pod,
                                         device, reduced, dims)
             t_build = time.perf_counter() - t0
             m = measure(fn, args, device)
+        model_rank = mesh.get_coordinate()[mesh.mesh_dim_names.index(
+            "model")]
     finally:
         destroy()
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    ms = sizes.get("model", 1)
+    split = m.pop("query_splits") > 0
+    m["flops"].update(model_rank_flops(m, ms))
+    # the counted rank's query rows start here (a query split only)
+    m["rank"] = rank
+    m["query_offset"] = model_rank * meta["seq_len"] // ms if split \
+        else None
     chips = math.prod(sizes.values())
     spec = CHIPS[chip]
     get = registry.get_reduced_config if reduced else registry.get_config
@@ -438,16 +536,31 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         model_shards=sizes.get("model", 1),
         wire_bytes_per_device=m["collectives_loop_aware"]["wire_bytes"],
         microbatches=meta.get("microbatches", 1), chip=spec)
+    terms = roofline({"flops": m["flops"]["total"],
+                      "bytes accessed": m["bytes"]["total"]},
+                     m["collectives_loop_aware"]["wire_bytes"], chips=chips,
+                     model_flops=useful_flops(get(arch), meta["kind"],
+                                              meta["global_batch"],
+                                              meta["seq_len"]), chip=spec)
+    measured = {"compute_s": terms.compute_s, "memory_s": terms.memory_s,
+                "collective_s": terms.collective_s,
+                "dominant": terms.dominant,
+                "step_time_s": terms.step_time_s,
+                "model_flops": terms.model_flops,
+                "utility_ratio": terms.utility_ratio, "mfu": terms.mfu}
     result = {**meta, "chips": chips, "mesh": sizes, "device": device,
               "reduced": reduced, "chip": spec.name,
               "chip_hbm_capacity_bytes": spec.hbm_capacity_bytes,
-              "build_s": round(t_build, 2), **m, "analytic": analytic}
+              "build_s": round(t_build, 2), **m, "roofline": measured,
+              "analytic": analytic}
     tag = f"{arch}_{shape_name}_{'multi' if multi_pod else 'single'}"
     _write(result, out_dir, tag)
     if verbose:
         print(f"[OK] {tag}: {m['seconds']:.1f}s, peak "
               f"{m['memory_peak_bytes'] / 2**30:.2f} GiB/rank, "
-              f"{m['flops']['total'] / 1e12:.3f} TFLOP/rank (analytic "
+              f"{m['flops']['total'] / 1e12:.3f} TFLOP/rank (mean over "
+              f"model ranks {m['flops']['total_mean_model_rank'] / 1e12:.3f}"
+              f"; analytic "
               f"{analytic['flops_per_device'] / 1e12:.3f}), wire "
               f"{m['collectives']['wire_bytes'] / 2**20:.1f} MiB/rank, "
               f"dominant={analytic['dominant']}", flush=True)

@@ -12,6 +12,13 @@ CPU tensors.  Everything else (the engine's ragged prefill, windows) runs
 over KV blocks, a plain function) when the caller asks for
 `impl="chunked"`: the RG-LRU model's windowed prefill goes there, and its
 ring decode (one row, `kv_len`, no window) to the dense decode kernel.
+
+On a mesh the kernels take DTensors (`kernels/_boundary.py`): a q whose
+sequence is sharded over "model" (heads that do not divide the axis)
+runs each rank's query rows against the whole K/V at the offset of its
+first row, through the flash kernel or, for the calls no kernel takes,
+the plain or chunked version; a cache whose length is sharded there
+decodes slice by slice and merges.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.hints import is_dtensor
-from repro_torch.kernels._boundary import heads_local_map
+from repro_torch.kernels._boundary import (heads_local_map, length_sharded,
+                                           query_local_map, whole_on_model)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -204,7 +212,18 @@ def attention(q, k, v, *, impl: str = "ref", page_table=None,
         return flash_attention(q, k, v, causal=causal)
     if is_dtensor(q):
         # no kernel takes this call: the plain versions on each rank's
-        # heads (positions and lengths plain, the same on every rank)
+        # heads, or query rows at their offset (positions and lengths
+        # plain, the same on every rank)
+        if length_sharded(k, 1):
+            # several rows against a cache whose length is sharded
+            # (prefill into the decode layout): the cache gathered whole
+            k, v = whole_on_model(k), whole_on_model(v)
+        if length_sharded(q, 1):
+            return query_local_map(
+                lambda a, b, c, off: attention(
+                    a, b, c, impl=impl, causal=causal, window=window,
+                    q_offset=q_offset + off, kv_len=kv_len), q, k, v,
+                seq_dim=1)
         return heads_local_map(
             lambda a, b, c: attention(a, b, c, impl=impl, causal=causal,
                                       window=window, q_offset=q_offset,

@@ -39,8 +39,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.hints import (embed_rows, gather_fsdp,
                                           is_dtensor, merge_heads,
-                                          mesh_axis_size, shard_hint,
-                                          split_heads, write_rows)
+                                          mesh_axis_size, rows_matmul,
+                                          shard_hint, split_heads,
+                                          write_rows)
 
 from .layers import (_qpos, apply_rope, attention, gelu_mlp, geglu,
                      layer_norm, mrope_cos_sin, rms_norm, rope_cos_sin,
@@ -247,8 +248,12 @@ def _layer(params, i: int) -> dict:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-# the residual stream on a mesh: batch over the dp axes, replicated on
-# "model" (the reference shards its sequence there, Megatron-SP)
+# the residual stream on a mesh (Megatron-SP, the reference's hint): batch
+# over the dp axes, its sequence over "model"; the axis drops where the
+# sequence does not divide it (decode)
+_SP = ("batch", "model", None)
+# an activation whole on "model": where the projections and the MLP read
+# the stream
 _ROWS = ("batch", None, None)
 
 # the weights' in-loop specs (the reference's, under its fsdp_hints)
@@ -261,6 +266,10 @@ _BLOCK_WSPECS = {
     "moe_wi_up": ("model", "fsdp", None), "moe_wo": ("model", None, "fsdp"),
 }
 
+# the attention's weights whole on "model" (a sequence-sharded q)
+_WHOLE = {"wq": ("fsdp", None), "wk": ("fsdp", None), "wv": ("fsdp", None),
+          "wo": (None, "fsdp"), "bq": (None,), "bk": (None,), "bv": (None,)}
+
 
 def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
            cache=None, kv_len=None):
@@ -270,27 +279,47 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
     The hints are the reference's, at its sites, and act only on
     DTensors.  A DTensor weight is gathered over its FSDP dim at block
     entry whatever `fsdp_hints` says (ZeRO-3: left sharded, DTensor may
-    gather the activations instead).  Heads shard over "model" when they
-    divide it; where they do not, q, k and v are replicated on "model"
-    (the reference shards q's sequence there instead, which a causal
-    kernel call on a slice of the queries cannot take).  A plain residual
+    gather the activations instead).  The residual stream arrives
+    sequence-sharded over "model" (Megatron-SP).  Heads shard over
+    "model" when they divide it: the normed stream is gathered for the
+    column-parallel projections, and the row-parallel outputs (after
+    `wo` and the MLP) are reduce-scattered back onto the sequence.  Where
+    they do not divide, q keeps the stream's sequence split, as the
+    reference's hint has it: the attention's weights are gathered whole
+    on "model" (a layer's wq is 16x smaller than the K or V a column
+    split would move at 32k positions), q, k and v come out
+    sequence-sharded, k and v are gathered whole, and each rank runs its
+    query rows at their offset (`kernels/_boundary.query_local_map`).
+    Decode (one position) drops the sequence axis.  A plain residual
     stream takes none of this: one type test, then the plain code."""
     b, s, _ = x.shape
     hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     meshed = is_dtensor(x)
-    if meshed:
-        lp = {k: (gather_fsdp(v, _BLOCK_WSPECS[k]) if k in _BLOCK_WSPECS
-                  else v) for k, v in lp.items()}
-    hnb = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_bias"))
-    if meshed:
-        hnb = shard_hint(hnb, _ROWS)
-    q, k, v = hnb @ lp["wq"], hnb @ lp["wk"], hnb @ lp["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    seq_q = False
     if meshed:
         ms = mesh_axis_size("model")
         head_ax = "model" if (ms is not None and h % ms == 0
                               and cache is None) else None
+        seq_q = head_ax is None and cache is None and ms is not None \
+            and ms > 1 and s % ms == 0
+        specs = {**_BLOCK_WSPECS, **_WHOLE} if seq_q else _BLOCK_WSPECS
+        lp = {k: gather_fsdp(v, specs[k]) if k in specs else v
+              for k, v in lp.items()}
+    hnb = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_bias"))
+    if meshed and not seq_q:
+        hnb = shard_hint(hnb, _ROWS)
+    if seq_q:
+        q, k, v = (rows_matmul(hnb, lp[n]) for n in ("wq", "wk", "wv"))
+    else:
+        q, k, v = hnb @ lp["wq"], hnb @ lp["wk"], hnb @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if seq_q:
+        seq = ("batch", "model", None, None)
+        q = shard_hint(q.reshape(b, s, h, hd), seq)
+        k = shard_hint(k.reshape(b, s, hkv, hd), seq)
+        v = shard_hint(v.reshape(b, s, hkv, hd), seq)
+    elif meshed:
         kv_head_ax = "model" if (head_ax and hkv % ms == 0) else None
         q = split_heads(q, h, hd, head_ax)
         k = split_heads(k, hkv, hd, kv_head_ax)
@@ -301,6 +330,10 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
         v = v.reshape(b, s, hkv, hd)
     if cfg.pos_embed == "rope":
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if seq_q:
+        # every rank's query rows read all of K/V
+        k = shard_hint(k, ("batch", None, None, None))
+        v = shard_hint(v, ("batch", None, None, None))
     rows = torch.arange(b, device=x.device)
 
     page_table = None
@@ -332,18 +365,23 @@ def _block(cfg: TransformerConfig, x, lp, cos, sin, *, q_offset=0,
         attn = attention(q, k, v, impl=cfg.attn_impl, causal=True,
                          window=cfg.window, q_offset=q_offset,
                          kv_len=kv_len)
-    if meshed:
-        attn_out = shard_hint(merge_heads(attn, head_ax) @ lp["wo"], _ROWS)
+    if seq_q:
+        attn_out = rows_matmul(attn.reshape(b, s, h * hd), lp["wo"])
+    elif meshed:
+        attn_out = shard_hint(merge_heads(attn, head_ax) @ lp["wo"], _SP)
     else:
         attn_out = attn.reshape(b, s, h * hd) @ lp["wo"]
     if cfg.parallel_block:
         # Command-R: attention and FFN read the same normed input
-        return x + cfg.residual_scale * (attn_out + _mlp(cfg, lp, hnb))
+        if not meshed:
+            return x + cfg.residual_scale * (attn_out + _mlp(cfg, lp, hnb))
+        mlp_out = shard_hint(_mlp(cfg, lp, shard_hint(hnb, _ROWS)), _SP)
+        return x + cfg.residual_scale * (attn_out + mlp_out)
     x = x + cfg.residual_scale * attn_out
     h2 = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_bias"))
     if not meshed:
         return x + cfg.residual_scale * _mlp(cfg, lp, h2)
-    mlp_out = shard_hint(_mlp(cfg, lp, shard_hint(h2, _ROWS)), _ROWS)
+    mlp_out = shard_hint(_mlp(cfg, lp, shard_hint(h2, _ROWS)), _SP)
     return x + cfg.residual_scale * mlp_out
 
 
@@ -443,7 +481,7 @@ def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
     x = _embed(cfg, params, tokens)
     meshed = is_dtensor(x)
     if meshed:
-        x = shard_hint(x, _ROWS)
+        x = shard_hint(x, _SP)
     x, (cos, sin) = _positions(cfg, x, 0, positions)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
@@ -454,8 +492,10 @@ def _hidden(params, tokens, cfg: TransformerConfig, positions=None):
         else:
             x = _block(cfg, x, _layer(params, i), cos, sin)
         if meshed:
-            x = shard_hint(x, _ROWS)
-    return _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+            x = shard_hint(x, _SP)   # the checkpoints stay sequence-sharded
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+    # the unembedding reads whole positions
+    return shard_hint(x, _ROWS) if meshed else x
 
 
 def forward(params, tokens, cfg: TransformerConfig, positions=None):

@@ -35,6 +35,7 @@ from repro_torch.distributed.hints import (embed_rows, gather_fsdp,
                                           is_dtensor, merge_heads,
                                           shard_hint, split_heads,
                                           weight_grad_placements)
+from repro_torch.kernels._boundary import is_fake, report
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 from . import grouped
@@ -157,7 +158,12 @@ def _slstm_block(cfg: XLSTMConfig, x, lp, state=None):
 def _slstm_scan(r, gates_x, *state):
     """The sLSTM recurrence over gates_x (B, S, 4, H, dh) from `state`
     (c, n, m, h), fresh when empty.  Returns (h per position (B, S, H,
-    dh), (c, n, m, h) after the last)."""
+    dh), (c, n, m, h) after the last).  Fake inputs (the dry run) walk no
+    position: `_FakeSLSTM` gives the outputs' shapes and reports the
+    loop's count."""
+    if is_fake(gates_x):
+        out = _FakeSLSTM.apply(r, gates_x, *state)
+        return out[0], tuple(out[1:])
     b, s, _, h, dh = gates_x.shape
     if not state:
         zeros = torch.zeros((b, h, dh), dtype=torch.float32,
@@ -182,6 +188,49 @@ def _slstm_scan(r, gates_x, *state):
         hprev = o * c / torch.maximum(torch.abs(n), torch.ones_like(n))
         hs.append(hprev)
     return torch.stack(hs, 1), (c, n, m, hprev)
+
+
+def slstm_counts(b: int, s: int, h: int, dh: int, gate_bytes: int):
+    """(FLOPs, bytes) of the sLSTM loop's forward over s positions: the
+    FLOPs FlopCounterMode counts there (one recurrent product per
+    position, (B, H, dh) x (H, 4, dh, dh): 8 B H dh^2; the elementwise
+    gating counts none), and the bytes a cell must move per position: its
+    gate inputs (`gate_bytes` a position), the f32 recurrent weights, the
+    four f32 carries read and written and h stored."""
+    carry = b * h * dh * 4
+    return (s * 8 * b * h * dh * dh,
+            s * (gate_bytes + 16 * h * dh * dh + 9 * carry))
+
+
+class _FakeSLSTM(torch.autograd.Function):
+    """The sLSTM loop on fake tensors: outputs of its shapes, its count
+    reported to `kernels/_boundary.COUNTS["slstm_scan"]`, so the dry run's
+    xLSTM cells need not walk every position through FakeTensorMode.  The
+    backward counts what autograd through the loop runs: a position's
+    product for the weights' gradient, and one for the carry's except at
+    the first position of a fresh state (a carry with no gradient)."""
+
+    @staticmethod
+    def forward(ctx, r, gates_x, *state):
+        b, s, _, h, dh = gates_x.shape
+        ctx.shapes = [(t.shape, t.dtype) for t in (r, gates_x, *state)]
+        flops, nb = slstm_counts(b, s, h, dh, gates_x[:, 0].numel()
+                                 * gates_x.element_size())
+        ctx.counts = (flops // s, nb, s,
+                      bool(state) and state[3].requires_grad)
+        report("slstm_scan", flops, nb)
+        f32 = dict(dtype=torch.float32, device=gates_x.device)
+        return (torch.empty((b, s, h, dh), **f32),
+                *(torch.empty((b, h, dh), **f32) for _ in range(4)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        per, nb, s, h0_grad = ctx.counts
+        products = s * ctx.needs_input_grad[0] + s - (not h0_grad)
+        report("slstm_scan", products * per, 2 * nb)
+        dev = grads[0].device
+        return tuple(torch.empty(shape, dtype=dt, device=dev)
+                     for shape, dt in ctx.shapes)
 
 
 def _rows(t):

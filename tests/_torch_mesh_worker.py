@@ -24,6 +24,16 @@ Jobs:
            recurrent weights) get their gradients reduced over the batch
            ranks.
   collect  the collective counter on known collectives of a fake group.
+  seqpar   ARGS: kind (decode | prefill | train), the mesh shape ("2,2",
+           "1,4", "2,2,2") and an npz of inputs (the reference's params or
+           train state, "p/..." or "s/...", and "tokens" / "labels").  The
+           reduced minicpm-2b (6 heads, f32) in the reference's sequence-
+           parallel layouts: decode with the KV cache's length sharded
+           over "model" (a prefill of "prompt" tokens, then one token a
+           step), the forward with q sequence-sharded (6 heads on 4 model
+           ranks), a train step on the Megatron-SP residual.  Rank 0
+           saves the outputs (seqpar.npz) for the test to hold against
+           the reference, and the collectives and layouts it saw.
 """
 import json
 import os
@@ -263,13 +273,107 @@ def job_collect(rank, world, out_dir, args):
     _write(out_dir, cc.collective_bytes())
 
 
+def _nest(flat: dict) -> dict:
+    out = {}
+    for key, arr in flat.items():
+        d = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = arr
+    return out
+
+
+def job_seqpar(rank, world, out_dir, args):
+    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.distributed.hints import on_mesh
+    from repro_torch.distributed.sharding import (batch_axes, distribute,
+                                                  gather_full, param_specs)
+    from repro_torch.kernels import _boundary
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.tree import tree_paths
+    kind, shape = args[0], tuple(int(x) for x in args[1].split(","))
+    arrs = dict(np.load(args[2]))
+    mesh = make_mesh(shape, device_type="cpu")
+    multi = len(shape) == 3
+    cfg = registry.get_reduced_config("minicpm-2b", compute_dtype="float32")
+    fns = registry.model_fns(cfg)
+    result, out = {}, {}
+
+    def placed(t, spec):
+        return distribute({"t": torch.from_numpy(t)}, {"t": spec}, mesh)["t"]
+
+    if kind in ("decode", "prefill"):
+        params = fns.params_from_jax(_nest({k[2:]: v for k, v in arrs.items()
+                                            if k.startswith("p/")}),
+                                     cfg, "cpu")
+        sh = distribute(params, param_specs(cfg, fsdp=False,
+                                            multi_pod=multi), mesh)
+    tokens = arrs["tokens"]
+    b = tokens.shape[0]
+    if kind == "decode":
+        prompt = int(arrs["prompt"])
+        cache = fns.init_cache(cfg, b, int(arrs["max_len"]), pad_to=8,
+                               device="cpu")
+        kv = (None, batch_axes(multi), "model")
+        c = distribute({n: cache[n] for n in ("k", "v")},
+                       {"k": kv, "v": kv}, mesh)
+        c["pos"] = cache["pos"]
+        result["cache_placements"] = str(c["k"].placements)
+        result["cache_local_len"] = c["k"].to_local().shape[2]
+        steps = [tokens[:, :prompt]] + [tokens[:, t:t + 1] for t in
+                                        range(prompt, tokens.shape[1])]
+        result["collectives"] = []
+        for i, t in enumerate(steps):
+            tok = placed(t, (batch_axes(multi), None))
+            with torch.no_grad(), on_mesh(mesh), CollectiveCounter() as cc:
+                logits, c = fns.decode_step(sh, c, tok, cfg)
+            out[f"logits{i}"] = logits.full_tensor().numpy()
+            result["collectives"].append(cc.collective_bytes())
+        out["k"] = c["k"].full_tensor().numpy()
+        out["v"] = c["v"].full_tensor().numpy()
+        result["pos"] = int(c["pos"])
+    elif kind == "prefill":
+        tok = placed(tokens, (batch_axes(multi), None))
+        _boundary.reset_counts()
+        with torch.no_grad(), on_mesh(mesh), CollectiveCounter() as cc:
+            logits = fns.forward(sh, tok, cfg)
+        out["logits"] = logits.full_tensor().numpy()
+        result["query_splits"] = _boundary.SPLITS["calls"]
+        result["collectives"] = cc.collective_bytes()
+    else:
+        state = loop.train_state_from_jax(
+            _nest({k[2:]: v for k, v in arrs.items()
+                   if k.startswith("s/")}), cfg, "cpu")
+        tcfg = loop.TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=3,
+                                total_steps=50)
+        step = loop.make_sharded_train_step(cfg, fns, tcfg, mesh,
+                                            multi_pod=multi)
+        result["metrics"] = []
+        for i in range(tokens.shape[0]):
+            batch = {"tokens": torch.from_numpy(tokens[i]),
+                     "labels": torch.from_numpy(arrs["labels"][i])}
+            with CollectiveCounter() as cc:
+                state, m = step(state, batch)
+            result["metrics"].append({k: float(v) for k, v in m.items()})
+            result["collectives"] = cc.collective_bytes()
+        for k, v in tree_paths(gather_full(state)).items():
+            out["s/" + k] = v.detach().numpy()
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "seqpar.npz"), **out)
+        _write(out_dir, result)
+
+
 def _write(out_dir, obj):
     with open(os.path.join(out_dir, "result.json"), "w") as f:
         json.dump(obj, f)
 
 
 JOBS = {"hop": job_hop, "step": job_step, "family": job_family,
-        "collect": job_collect}
+        "collect": job_collect, "seqpar": job_seqpar}
 FAKE = {"collect"}
 
 

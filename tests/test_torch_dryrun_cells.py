@@ -73,4 +73,9 @@ def test_decode_cells_count_their_kernels(cells):
     # at decode
     assert "decode_attention" in cells["recurrentgemma-2b"]["flops"][
         "per_kernel"]
-    assert "notes" in cells["granite-moe-1b-a400m"]
+    # the KV cache shards its length over "model" as the reference's dry
+    # run places it: each rank holds 1 / model of the whole cache
+    r = cells["granite-moe-1b-a400m"]
+    assert "notes" not in r
+    rows = r["kv_cache_bytes"] // (r["mesh"]["pod"] * r["mesh"]["data"])
+    assert r["kv_cache_bytes_per_rank"] * r["mesh"]["model"] == rows

@@ -99,9 +99,17 @@ def test_non_causal_ragged_lengths_match_the_oracle(s, skv):
 
 
 def test_causal_needs_equal_lengths():
+    """A causal call's query rows are a slice of the keys' positions: Sq
+    + q_offset <= Skv (Sq < Skv at offset 0 is a query slice's first
+    rows, Sq == Skv the whole sequence)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 2, 2, 8, 64, 16))
-    with pytest.raises(ValueError, match="Sq == Skv"):
-        flash_attention(q, k, v, causal=True, layout="bhsd")
+    match = re.escape("Sq + q_offset <= Skv")
+    with pytest.raises(ValueError, match=match):
+        flash_attention(k, q, q, causal=True, layout="bhsd")
+    with pytest.raises(ValueError, match=match):
+        flash_attention(q, k, v, causal=True, q_offset=9, layout="bhsd")
+    with pytest.raises(ValueError, match=match):
+        flash_attention(q, k, v, causal=True, q_offset=-1, layout="bhsd")
 
 
 @pytest.mark.parametrize("causal", [True, False])
