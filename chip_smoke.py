@@ -16,6 +16,8 @@
   python3 chip_smoke.py --phase 24   # phases 1 and 24 only, no result line
   python3 chip_smoke.py --phase 25   # phases 1 and 25 only, no result line
   python3 chip_smoke.py --phase 26   # phases 1 and 26 only, no result line
+  python3 chip_smoke.py --b3-against SRC  # B3 against a build of an older
+                                          # source, no phases (b3_against)
 
 Each phase header prints the wall clock and the seconds the previous
 phase took.
@@ -51,7 +53,10 @@ phase took.
    training shape a planted fault (the plain version leaving out one key
    in 128) must fail the bf16 limit.  Gradients of q, k, v through the
    autograd path against autograd through the plain version.  Times at
-   the training shape beside the FLOP bound, the plain version and SDPA.
+   the training shape beside the FLOP bound, the plain version and SDPA,
+   and the K/V bytes its work order loads, with the misses that a model
+   of L2 (`kernel.kv_traffic`; not a measurement) counts for it and for
+   the order in one band.
    The new rows: the same checks (no planted fault, no gradients) and
    times at qwen2-vl-2b's training shape (B 8, H 12/2, S 1024, dh 128:
    `flash_attention_dh128`), musicgen-medium's (H 24/24, dh 64:
@@ -670,6 +675,24 @@ def flash_bound(b, h, hkv, sq, skv, dh, causal, itemsize):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kv_order(torch, b, h, hkv, sq, skv, dh, q_offset):
+    """The K/V bytes of B3's order at this shape (causal, bf16): loaded by
+    every item, and the misses `kernel.kv_traffic`'s model of L2 counts
+    (a model, not a measurement), for the bands the wrapper picks and for
+    one band (the order before bands)."""
+    from repro_torch.kernels.flash_attention import kernel as b3
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    band = b3.kv_band(b, hkv, skv, dh, l2)
+    loaded, hbm = b3.kv_traffic(b, h, hkv, sq, skv, dh, True, q_offset,
+                                band, l2)
+    _, hbm_one = b3.kv_traffic(b, h, hkv, sq, skv, dh, True, q_offset,
+                               b * hkv, l2)
+    return (f"K/V loaded {loaded / 1e6:.1f} MB in bands of {band} (batch, "
+            f"kv head) pairs; L2 misses by kv_traffic's model (not "
+            f"measured) {hbm / 1e6:.1f} MB ({hbm_one / 1e6:.1f} MB in one "
+            f"band)")
+
+
 # B3's timed shapes: the demo LM's training shape (the main row), then
 # qwen2-vl-2b's (H 12/2, dh 128: a GQA group of 6), musicgen-medium's
 # (H 24/24, MHA) and stablelm-12b's (H 32/8, dh 160) at seq 1024, batch 8
@@ -772,7 +795,8 @@ def flash_phase(torch, timer, names, more=True):
         print(f"  {name} @ B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 causal: "
               f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}) | plain "
               f"{plain_ms * 1e3:.2f} us | SDPA {sdpa_ms * 1e3:.2f} us | "
-              f"B3 / SDPA {ms / sdpa_ms:.3f}", flush=True)
+              f"B3 / SDPA {ms / sdpa_ms:.3f} | "
+              f"{kv_order(torch, b, h, hkv, s, s, dh, 0)}", flush=True)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/flash_attention/"
                                "csrc/flash_attention.cu",
@@ -4874,7 +4898,8 @@ def b3_offset_phase(torch, timer):
           f"{plain_ms * 1e3:.2f} us | SDPA flash (causal_lower_right) "
           f"{lib_ms * 1e3:.2f} us: B3 {ms / lib_ms:.2f}x SDPA's time "
           f"(B3 vs SDPA max abs err {lib_err:.3e}, {lib_share:.3f} of the "
-          f"limit)", flush=True)
+          f"limit) | {kv_order(torch, b, h, h, sl, s_all, dh, off)}",
+          flush=True)
     del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
     return {"name": "flash_attention_offset", "route": "cuda",
@@ -4984,6 +5009,130 @@ def seqpar_paths(torch, timer, smi, estimate):
     return [lse_row, off_row]
 
 
+def _declare_b3_before_bands(lib):
+    """`flash_attention_launch` as it was before the work order's bands
+    (no `band` argument)."""
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, i, ctypes.c_float, p, i]
+    lib.flash_attention_launch.restype = i
+
+
+# the shares of L2 that `--b3-against` times the bands at
+B3_SHARES = (16, 8, 4, 2)
+
+
+def b3_against(torch, source, smi):
+    """`--b3-against SRC`: B3's bf16 kernel from this checkout against a
+    build of an older `flash_attention.cu` with the C interface before
+    bands (e.g. a commit's, written out with `git show` as
+    `<dir>/csrc/flash_attention.cu` in a gitignored `<dir>`; it builds
+    into `<dir>/build/`), at the FLASH_ROWS and phase 26b's timed shape
+    (q 2 x 2,048 x 36 x 64 at offset 30,720 against 32,768 keys).  This
+    kernel runs in one band, in the bands within L2/n for each n of
+    B3_SHARES (`kv_band` for an L2 of L2_PARTS / n times the card's, so
+    one band where the whole K/V fits 2 / n of it), and at the rule;
+    each must be bitwise the older build.  Times (Timer, L2 flushed) in
+    turn over the older build and every order, then in reverse, beside
+    SDPA (on its flash backend with `causal_lower_right` at the offset).
+    Returns 0 if every order is bitwise the older build's."""
+    import ctypes
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels._build import Library
+    from repro_torch.kernels.flash_attention import kernel as b3
+    older = Library(Path(source).resolve(), _declare_b3_before_bands)
+    libs = (older, b3.LIBRARY)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.load) for lib in libs]:
+            f.result()
+    for label, lib in zip(("older", "this"), libs):
+        print(f"{label}: {lib.source} built in {lib.seconds:.1f} s",
+              flush=True)
+        entry = ""
+        for ln in lib.log.splitlines():
+            found = re.search(r"Compiling entry function '(\w+)'", ln)
+            if found:
+                entry = found.group(1)
+            elif "flash_fwd_tc" in entry and ("registers" in ln
+                                              or "spill" in ln):
+                inst = re.search(r"TcLayoutILi(\d+)ELi(\d+)ELi(\d+)", entry)
+                print(f"  {label} dh {inst[1]}: {ln.strip()}", flush=True)
+    dev = torch.device("cuda")
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    timer = Timer(torch)
+    shapes = [(n, (b, h, hkv, s, s, dh, 0)) for n, (b, h, hkv, s, dh)
+              in FLASH_ROWS]
+    shapes.append(("flash_attention_offset",
+                   (2, 36, 36, 2048, 32768, 64, 30720)))
+    ok, rows = True, []
+    for name, (b, h, hkv, sq, skv, dh, off) in shapes:
+        g = torch.Generator(device=dev).manual_seed(sq + dh)
+        q, k, v = (torch.randn(b, n, hh, dh, generator=g, device=dev,
+                               dtype=torch.bfloat16).transpose(1, 2)
+                   for n, hh in ((sq, h), (skv, hkv), (skv, hkv)))
+        bands = {"one band": b * hkv}
+        bands.update({f"L2/{n}": b3.kv_band(b, hkv, skv, dh,
+                                            l2 * b3.L2_PARTS // n)
+                      for n in B3_SHARES})
+        bands["rule"] = b3.kv_band(b, hkv, skv, dh, l2)
+
+        def before():
+            out = torch.empty(b, sq, h, dh, dtype=q.dtype,
+                              device=dev).transpose(1, 2)
+            st = (ctypes.c_int64 * 12)(*(x for t in (q, k, v, out)
+                                         for x in b3._strides(t)))
+            err = older.lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                st, b, h, h // hkv, sq, skv, dh, 1, 1, dh ** -0.5,
+                torch.cuda.current_stream(dev).cuda_stream, off)
+            check(err == 0, f"the older build's launch: CUDA error {err}")
+            return out
+        calls = {"older": before}
+        calls.update({label: (lambda n=n: b3.flash_attention_fwd(
+            q, k, v, causal=True, q_offset=off, band=n))
+            for label, n in bands.items()})
+        want = before()
+        bitwise = {label: bool(torch.equal(fn(), want))
+                   for label, fn in calls.items()}
+        ok &= all(bitwise.values())
+        iters = 20 if sq > 1024 else 50
+        us = {label: [] for label in calls}
+        for label in list(calls) + list(reversed(calls)):
+            us[label].append(timer.ms(calls[label], iters=iters) * 1e3)
+        if off:
+            mask = causal_lower_right(sq, skv)
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), iters=iters) * 1e3
+        else:
+            sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)) * 1e3
+        print(f"{name} (B {b}, H {h}/{hkv}, Sq {sq}, Skv {skv}, dh {dh}, "
+              f"offset {off}): SDPA {sdpa:.2f} us | {smi}", flush=True)
+        for label, t in us.items():
+            band = bands.get(label)
+            loaded, missed = b3.kv_traffic(b, h, hkv, sq, skv, dh, True,
+                                           off, band or b * hkv, l2)
+            print(f"  {label:8s} band {band or '-':>3}: {t[0]:9.2f} "
+                  f"{t[1]:9.2f} us ({min(t) / sdpa:.3f}x SDPA) | K/V "
+                  f"loaded {loaded / 1e6:.1f} MB, L2 misses by the model "
+                  f"{missed / 1e6:.1f} MB | bits == older: "
+                  f"{bitwise[label]}", flush=True)
+        rows.append({"name": name, "sdpa_us": sdpa, "us": us,
+                     "bands": bands, "bitwise": bitwise})
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(json.dumps({"device": smi, "l2_bytes": l2, "rows": rows}))
+    print("every order bitwise the older build" if ok else
+          "an order's bits differ from the older build", flush=True)
+    return 0 if ok else 1
+
+
 def main(argv):
     import torch
     only_2c = argv == ["--phase", "2c"]
@@ -4997,13 +5146,16 @@ def main(argv):
     only_mesh = argv == ["--phase", "24"]
     only_lint = argv == ["--phase", "25"]
     only_seqpar = argv == ["--phase", "26"]
-    if argv and not (only_2c or only_new or only_plane or only_family
-                     or only_branch or only_slice8 or only_family_train
-                     or only_paper or only_mesh or only_lint
-                     or only_seqpar):
+    b3_source = argv[1] if len(argv) == 2 and argv[0] == "--b3-against" \
+        else None
+    if argv and b3_source is None and not (
+            only_2c or only_new or only_plane or only_family or only_branch
+            or only_slice8 or only_family_train or only_paper or only_mesh
+            or only_lint or only_seqpar):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
               "--phase 14 | --phase 17 | --phase 20 | --phase 21 | "
-              "--phase 23 | --phase 24 | --phase 25 | --phase 26]",
+              "--phase 23 | --phase 24 | --phase 25 | --phase 26 | "
+              "--b3-against SRC]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5022,6 +5174,8 @@ def main(argv):
                          text=True, timeout=60).stdout.strip()
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    if b3_source is not None:
+        return b3_against(torch, b3_source, smi)
 
     phase("phase 1: build")
     libs = (b12.LIBRARY, b3.LIBRARY, b4.LIBRARY)

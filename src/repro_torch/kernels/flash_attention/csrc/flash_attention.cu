@@ -18,26 +18,55 @@
 // Instances: dh 64, 128 and 160, bf16 and f32; the wrapper zero-pads a
 // head dim below 64 to 64 and passes the true dh's scale.
 //
-// Bound.  At the training shape (B 8, H 12, Hkv 4, S 1024, dh 64, bf16,
-// causal) the work is 4 * dh FLOP per visible (query, key) pair, 12.9
-// GFLOP, 13.0 us at 989 TFLOP/s; the bytes (q, k, v read once, o written
-// once) are 33.6 MB, 10.0 us at 3.35 TB/s: bound by the tensor cores (and,
-// at dh 64, as much by the 16-per-clock exp2 units), so the design keeps
-// both fed.
+// Bound (bf16, causal, B 8, S 1024; 4 dh FLOP per visible (query, key)
+// pair at 989 TFLOP/s, q, k, v read once and o written once at 3.35
+// TB/s): the demo LM (H 12/4, dh 64) 13.0 us of operations (10.0 us of
+// bytes), musicgen's MHA (H 24/24, dh 64) 30.05 us of bytes, stablelm
+// (H 32/8, dh 160) 86.94 us of operations.  At dh 64 the 16-per-clock
+// exp2 units take as long as the tensor cores, so the design keeps both
+// fed.  Each item reads its K/V tiles up to the diagonal: over a call
+// 113 MB (demo LM), 227 MB (MHA), 755 MB (dh 160), 9.4 GB (2,048 queries
+// at offset 30,720 against 32,768 keys, H 36/36), against K/V of 8.4,
+// 50.3, 41.9 and 604 MB.  Where the items meet that K/V in L2 is what
+// the order decides (below; kernel.kv_traffic models it, unmeasured: no
+// profiler reads the card's L2 counters here).
 //
 // bf16 design (flash_fwd_tc), after the Hopper flash-attention recipe:
 // warp specialisation, TMA, wgmma, the accumulators in registers.  A
 // persistent CTA (one per SM) of three warpgroups walks work items of
-// (128 query rows, query head, batch), heaviest causal items first, every
-// other round in reverse so heavy and light items even out.  Warpgroup 0
-// is the producer: it gives up registers (setmaxnreg) and one thread
-// issues TMA loads, an item's Q tile and then its K and V tiles of 128
-// keys into a ring of STAGES stages, with full and empty mbarriers.  Each
-// load is a 4-D tensor map over (dh, S, H, B) with the tensor's own
-// strides, in 64-column boxes with 128-byte swizzle (dh 160: 32-column
-// boxes with 64-byte swizzle, see TcLayout); rows past Sq or Skv arrive as
-// zeros.  Warpgroups 1 and 2 are consumers (setmaxnreg up),
-// each owning 64 of the item's query rows.  Per key tile a consumer
+// (128 query rows, query head, batch).
+//
+// Order.  The items come in bands of (batch, kv head) pairs whose K/V
+// fits an eighth of L2 (one band where the whole K/V fits a quarter),
+// by query tile inside a band and the heads of a GQA group side by side
+// (work_item), so a band's K/V comes from device memory
+// about once: by the model 227 -> 50.3 MB for MHA and 189 -> 41.9 at dh
+// 160, where the order by query tile over all (head, batch) read a
+// pair's K/V again on every pass over the heads once the K/V outgrew L2
+// (the long slice, 9.4 GB loaded, already found most of it in L2: the
+// kernel before moved 3.5 TB/s of it).  The CTAs take the items in static
+// rounds (CTA i takes items i, 2G - 1 - i, 2G + i, ...; G CTAs), which
+// pair heavy items with light ones where the items' weights fall through
+// the order.  So over several bands the bands alternate: the last one
+// runs heaviest first, the one before it lightest first, and so on, and
+// two bands meet at their light ends or at their heavy ones, where heavy
+// first in every band would put a band's light end against the next
+// one's heavy start inside a round.  Producer and consumers each decode
+// an item from its index with three quotients by a multiply and a shift
+// (FastDiv): divisions there cost up to 4% of a call.
+//
+// Ring.  Warpgroup 0 is the producer: it gives up registers (setmaxnreg)
+// and one thread issues TMA loads, an item's Q tile and then its K and V
+// tiles of 128 keys into a ring of STAGES stages; K and V each have their
+// own full and empty mbarriers.  Each load is a 4-D tensor map over (dh,
+// S, H, B) with the tensor's own strides, in 64-column boxes with 128-byte
+// swizzle (dh 160: 32-column boxes with 64-byte swizzle, see TcLayout);
+// rows past Sq or Skv arrive as zeros.  A K slot goes back to the
+// producer once its S is done, a V slot once its P V is: at dh 160 (two
+// stages of 80 KB) K(t + 1) now loads during tile t's softmax, where it
+// waited for tile t - 1's P V before.  Warpgroups 1 and 2 are consumers
+// (setmaxnreg up), each owning 64 of the item's query rows.  Per key tile
+// a consumer
 //   1. computes S = Q K^T (64 x 128, f32) with wgmma m64n128k16 from
 //      shared memory, both operands K-major, into registers;
 //   2. masks S on the item's last tile only (the diagonal tile in causal
@@ -54,7 +83,26 @@
 // Tile t's S and tile t - 1's P V are issued back to back, so tile t's
 // softmax runs while the tensor cores do the P V.  Finally each consumer
 // divides by the quad-summed denominator and stores its rows < Sq in bf16
-// straight from registers.  No atomics: a call is bitwise repeatable.
+// straight from registers.  No atomics: a call is bitwise repeatable,
+// and the order decides only which CTA computes an item, so every order
+// gives the bits of the kernel before the order and the ring.
+//
+// Measured (`python3 chip_smoke.py --b3-against <the kernel before>`,
+// both builds in one call; NVIDIA H100 80GB HBM3, 700 W, L2 flushed; the
+// kernel before -> this one at its rule's bands, us, SDPA in the same
+// call): demo LM 48.11 (its first turn 55.02) -> 48.04-48.50, SDPA
+// 51.29 (one band); qwen2-vl dh 128 66.91-67.02 -> 66.65-66.68, 66.90
+// (one band); MHA 100.64-100.65 -> 85.40-85.72, 86.96; dh 160
+// 246.69-249.04 -> 196.90-197.18, 218.54; granite H 16/8 60.81-60.84 ->
+// 60.84-60.92, 62.58; the long slice 2,656.84-2,657.22 ->
+// 2,536.49-2,546.54, 4,235.88.  Bitwise the kernel before at every
+// order.  In a whole `python3 chip_smoke.py` run (same card) qwen2-vl's
+// dh 128 is level with SDPA, not below it: 68.04 against 67.82 (1.003x);
+// MHA 0.987x and dh 160 0.906x of SDPA.  Tried and dropped (none faster): CTAs drawing items from a
+// counter in device memory instead of static rounds, turns between the
+// consumers (named barriers), a second Q slot, the next item's first S
+// issued beside the last P V, an L2 prefetch of the next Q, L2 eviction
+// hints, deeper rings at dh 64.
 //
 // f32 design (flash_fwd_f32).  One CTA of four warps per (64 query rows,
 // head, batch), 64-key tiles staged in shared memory with 16-byte loads,
@@ -255,19 +303,38 @@ constexpr int BQ = 128;         // query rows per CTA: two consumers of 64
 constexpr int BK = 128;         // keys per tile
 constexpr int THREADS = 384;    // producer + two consumer warpgroups
 
+// n / d for 0 <= n < 2^31 by a multiply and a shift, mul and shr found
+// once a call on the host (fast_div; Granlund and Montgomery's round-up
+// method, as in CUTLASS's FastDivmod): the work order's decode takes
+// three such quotients, where three divisions would hold up both
+// consumers at every item
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+};
+
+__device__ __forceinline__ int quotient(int n, const FastDiv& f) {
+  return f.d == 1 ? n : (int)(__umulhi((uint32_t)n, f.mul) >> f.shr);
+}
+
 struct TcArgs {
   void* o;
   int64_t o_sb, o_sh, o_ss;  // element strides of the output
   int heads, batch, n_qt;    // n_qt query tiles of BQ rows per head
   int sq, skv, group, causal, q_offset;
+  // the item order (work_item): bands of `band` (batch, kv head) pairs,
+  // n_bands of them; items a band, (batch, head)s a band and in the last
+  // band, and the heads, as divisors
+  int band, n_bands;
+  FastDiv band_items, band_hb, last_hb, by_heads;
   float scale_log2;  // dh**-0.5 * log2(e)
 };
 
 // Shared memory: the Q tile (BQ rows), then STAGES K tiles and STAGES V
 // tiles (BK rows), each as DH / BOX_COLS swizzled boxes of (rows x
 // BOX_BYTES), 1024-byte aligned; then the mbarriers (q_full, q_empty,
-// k_full[STAGES], v_full[STAGES], empty[STAGES]).  dh 64 and 128 take
-// 64-column boxes of 128 bytes under the 128-byte swizzle and a ring of 3
+// k_full[STAGES], v_full[STAGES], k_empty[STAGES], v_empty[STAGES]).
+// dh 64 and 128 take 64-column boxes of 128 bytes under the 128-byte swizzle and a ring of 3
 // stages (dh 128: 32 KB of Q + 3 x 64 KB of K and V).  dh 160 is no
 // multiple of 64: it takes five 32-column boxes of 64 bytes under the
 // 64-byte swizzle, so every box is whole and no column is padded, and a
@@ -288,7 +355,7 @@ template <int DH_, int BOX_COLS_, int STAGES_> struct TcLayout {
   static constexpr uint32_t K = Q + Q_BYTES;
   static constexpr uint32_t V = K + STAGES * KV_BYTES;
   static constexpr uint32_t BAR = V + STAGES * KV_BYTES;
-  static constexpr uint32_t BYTES = BAR + 8 * (2 + 3 * STAGES) + 1024;
+  static constexpr uint32_t BYTES = BAR + 8 * (2 + 4 * STAGES) + 1024;
   static_assert(DH % BOX_COLS == 0 && (BOX_COLS == 64 || BOX_COLS == 32),
                 "boxes of 64 columns (128-byte swizzle) or 32 (64-byte)");
   static_assert(BYTES <= 232448, "more shared memory than a block may have");
@@ -594,15 +661,16 @@ __device__ __forceinline__ void issue_values(float (&o)[L::DH / 2],
 // first tile that needs the mask and the query position of row r0 (see
 // softmax_step)
 struct Consumer {
-  uint32_t base, q_tile, q_empty, k_full, v_full, empty;
+  uint32_t base, q_tile, q_empty, k_full, v_full, k_empty, v_empty;
   int c0, g0, n_tiles, mask_from, qrow0;
 };
 
 // Key tile it >= 1 of the item: S = Q K^T of tile it and O += P V of tile
-// it - 1 (P in p) go to the tensor cores back to back; tile it's softmax
-// (P into p_next) runs while the P V does; then O takes tile it's rescale
-// and tile it - 1's stage goes back to the producer.  After the item's
-// last S the Q tile goes back too.
+// it - 1 (P in p) go to the tensor cores back to back; once S is done
+// tile it's K slot goes back to the producer, and tile it's softmax (P
+// into p_next) runs while the P V does; then O takes tile it's rescale
+// and tile it - 1's V slot goes back.  After the item's last S the Q tile
+// goes back too.
 template <class L>
 __device__ __forceinline__ void overlapped_tile(
     int it, const Consumer& c, const TcArgs& a, float (&sc)[64],
@@ -618,17 +686,18 @@ __device__ __forceinline__ void overlapped_tile(
   issue_values<L>(o, p, c.base + L::V + sp * L::KV_BYTES);
   wgmma_wait<1>();
   fence_regs(sc);
+  mbar_arrive(c.k_empty + 8 * s);
   if (it == c.n_tiles - 1) mbar_arrive(c.q_empty);
   softmax_step(sc, m, l, alpha, p_next, it >= c.mask_from, it * BK + c.c0,
                c.qrow0, a);
   wgmma_wait<0>();
   fence_regs(o);
-  mbar_arrive(c.empty + 8 * sp);
+  mbar_arrive(c.v_empty + 8 * sp);
 #pragma unroll
   for (int i = 0; i < L::DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
-// O += P V of the item's last tile, waited for, and its stage released
+// O += P V of the item's last tile, waited for, and its V slot released
 template <class L>
 __device__ __forceinline__ void last_values(const Consumer& c,
                                             float (&o)[L::DH / 2],
@@ -639,21 +708,34 @@ __device__ __forceinline__ void last_values(const Consumer& c,
   issue_values<L>(o, p, c.base + L::V + s * L::KV_BYTES);
   wgmma_wait<0>();
   fence_regs(o);
-  mbar_arrive(c.empty + 8 * s);
+  mbar_arrive(c.v_empty + 8 * s);
 }
 
-// Work item w of a call: (query tile, head, batch), heaviest query tiles
-// first (in causal mode the last query tiles see the most keys)
+// Work item w of a call: (query tile, head, batch).  The (batch, kv head)
+// pairs u = b * Hkv + hk are cut into bands of a.band pairs (the last
+// band may hold fewer); a band's items come before the next band's, so
+// the query tiles that read one pair's K/V run close together in time
+// and find it in L2.  Inside a band: by query tile, then by (batch, head)
+// (the heads of a GQA group side by side), heaviest query tiles first (in
+// causal mode the last query tiles see the most keys) in the last band
+// and every second band before it, lightest first in the others (see
+// Order above).  One band (a.band >= B Hkv) is the order by query tile
+// over all (head, batch), heaviest first.
 struct Item {
   int q0, h, b, n_tiles;
 };
 
 __device__ __forceinline__ Item work_item(int w, const TcArgs& a) {
-  const int hb = a.heads * a.batch;
+  const int band = quotient(w, a.band_items);
+  const FastDiv hb = band == a.n_bands - 1 ? a.last_hb : a.band_hb;
+  int r = w - band * a.band_items.d;                  // w inside the band
+  if ((a.n_bands - 1 - band) & 1) r = a.n_qt * hb.d - 1 - r;
+  const int qt = quotient(r, hb);
+  const int f = band * a.band * a.group + (r - qt * hb.d);  // b * H + h
   Item it;
-  it.q0 = (a.n_qt - 1 - w / hb) * BQ;
-  it.h = (w % hb) % a.heads;
-  it.b = (w % hb) / a.heads;
+  it.q0 = (a.n_qt - 1 - qt) * BQ;
+  it.b = quotient(f, a.by_heads);
+  it.h = f - it.b * a.heads;
   const int kend = a.causal ? min(a.skv, it.q0 + BQ + a.q_offset) : a.skv;
   it.n_tiles = (kend + BK - 1) / BK;
   return it;
@@ -676,7 +758,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t q_empty = q_full + 8;
   const uint32_t k_full = q_empty + 8;  // + 8 * stage
   const uint32_t v_full = k_full + 8 * L::STAGES;
-  const uint32_t empty = v_full + 8 * L::STAGES;
+  const uint32_t k_empty = v_full + 8 * L::STAGES;
+  const uint32_t v_empty = k_empty + 8 * L::STAGES;
   const int n_items = a.n_qt * a.heads * a.batch;
   // the CTA's j-th work item: rounds of gridDim.x items, every other round
   // in reverse, so heavy and light causal items even out across CTAs
@@ -691,7 +774,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 256);
+      mbar_init(k_empty + 8 * s, 256);
+      mbar_init(v_empty + 8 * s, 256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -713,12 +797,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                    c * L::BOX_COLS, item.q0, item.h, item.b);
         for (int it = 0; it < item.n_tiles; ++it, ++g) {
           const int s = g % L::STAGES;
-          mbar_wait(empty + 8 * s, ((g / L::STAGES) & 1) ^ 1);
+          const uint32_t parity = ((g / L::STAGES) & 1) ^ 1;
+          mbar_wait(k_empty + 8 * s, parity);
           mbar_expect_tx(k_full + 8 * s, L::KV_BYTES);
 #pragma unroll
           for (int c = 0; c < DH / L::BOX_COLS; ++c)
             tma_load(base + L::K + s * L::KV_BYTES + c * L::KV_BOX, &kmap,
                      k_full + 8 * s, c * L::BOX_COLS, it * BK, hk, item.b);
+          mbar_wait(v_empty + 8 * s, parity);
           mbar_expect_tx(v_full + 8 * s, L::KV_BYTES);
 #pragma unroll
           for (int c = 0; c < DH / L::BOX_COLS; ++c)
@@ -738,7 +824,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     c.base = base;
     c.k_full = k_full;
     c.v_full = v_full;
-    c.empty = empty;
+    c.k_empty = k_empty;
+    c.v_empty = v_empty;
     c.q_tile = base + L::Q + 64 * cw * L::BOX_BYTES;
     c.q_empty = q_empty;
     c.c0 = 2 * (lane % 4);
@@ -768,6 +855,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       issue_scores<L>(sc, c.q_tile, base + L::K + s * L::KV_BYTES);
       wgmma_wait<0>();
       fence_regs(sc);
+      mbar_arrive(k_empty + 8 * s);
       if (c.n_tiles == 1) mbar_arrive(c.q_empty);
       softmax_step(sc, m, l, alpha, pa, c.mask_from == 0, c.c0, c.qrow0, a);
       int it = 1;
@@ -856,10 +944,21 @@ int encode(CUtensorMap* map, const void* ptr, int dh, int s, int heads,
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
 }
 
+FastDiv fast_div(int d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    uint32_t l = 0;  // ceil(log2 d)
+    while ((1ull << l) < (uint64_t)d) ++l;
+    f.mul = (uint32_t)(((1ull << (31 + l)) + (uint64_t)d - 1) / (uint64_t)d);
+    f.shr = l - 1;
+  }
+  return f;
+}
+
 template <class L>
 int launch_tc(const void* const* ptrs, void* o, const int64_t* st,
               int batch, int heads, int group, int sq, int skv, int causal,
-              int q_offset, float scale, cudaStream_t stream) {
+              int q_offset, float scale, int band, cudaStream_t stream) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const int err = encode(&maps[i], ptrs[i], L::DH, i ? skv : sq,
@@ -881,6 +980,13 @@ int launch_tc(const void* const* ptrs, void* o, const int64_t* st,
   a.group = group;
   a.causal = causal;
   a.q_offset = q_offset;
+  const int pairs = batch * (heads / group);
+  a.band = min(band, pairs);
+  a.n_bands = (pairs + a.band - 1) / a.band;
+  a.band_items = fast_div(a.band * a.n_qt * group);
+  a.band_hb = fast_div(a.band * group);
+  a.last_hb = fast_div((pairs - (a.n_bands - 1) * a.band) * group);
+  a.by_heads = fast_div(heads);
   a.scale_log2 = scale * 1.4426950408889634f;
   auto kern = flash_fwd_tc<L>;
   const int smem = (int)L::BYTES;
@@ -909,24 +1015,26 @@ extern "C" {
 // (12 values: q, k, v, o).  dtype: 0 = float32, 1 = bfloat16.  Returns a
 // cudaError_t (0 = launched), or 10000 + a CUresult if a bf16 tensor map
 // could not be encoded.  causal: key j is masked for query row i iff
-// j > i + q_offset.
+// j > i + q_offset.  bf16 only: `band`, the (batch, kv head) pairs per
+// band of the work order (>= 1).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const int64_t* strides, int batch,
                            int heads, int group, int sq, int skv, int dh,
                            int dtype, int causal, float scale, void* stream,
-                           int q_offset) {
+                           int q_offset, int band) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (band < 1) return (int)cudaErrorInvalidValue;
     const void* ptrs[3] = {q, k, v};
     if (dh == 64)
       return launch_tc<Tc64>(ptrs, o, strides, batch, heads, group, sq, skv,
-                             causal, q_offset, scale, s);
+                             causal, q_offset, scale, band, s);
     if (dh == 128)
       return launch_tc<Tc128>(ptrs, o, strides, batch, heads, group, sq,
-                              skv, causal, q_offset, scale, s);
+                              skv, causal, q_offset, scale, band, s);
     if (dh == 160)
       return launch_tc<Tc160>(ptrs, o, strides, batch, heads, group, sq,
-                              skv, causal, q_offset, scale, s);
+                              skv, causal, q_offset, scale, band, s);
     return (int)cudaErrorInvalidValue;
   }
   Params p;

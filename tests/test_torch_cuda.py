@@ -251,6 +251,39 @@ def test_flash_kernel_at_stablelm_training_shape(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,skv,q_offset,bands", [
+    (8, 24, 24, 1024, 1024, 0, (1, 48, 192)),      # MHA: the rule's 8 x 24
+    (1, 8, 8, 512, 16384, 15872, (1, 3, 8)),       # long keys: 1 pair a band
+    (2, 12, 4, 1000, 1000, 0, (1, 3, 8)),          # ragged; 3 leaves 2
+])
+def test_flash_kernel_work_order_changes_no_bit(cuda_device, b, h, hkv, sq,
+                                                skv, q_offset, bands):
+    """B3's bf16 kernel in bands of (batch, kv head) pairs (`kv_band`'s
+    rule at the card's L2, and the bands given: one pair, a size that
+    does not divide the pairs, all pairs): within the bf16 limit of the
+    plain version, two calls bitwise equal, one launch counted per call,
+    and every band size bitwise equal to the rule's."""
+    g = torch.Generator(device="cpu").manual_seed(sq + skv)
+    q, k, v = (torch.randn(b, n, hh, 64, generator=g).to(
+        cuda_device, torch.bfloat16) for n, hh in ((sq, h), (skv, hkv),
+                                                   (skv, hkv)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    assert flash_attention.launches == before + 1
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    ref = attention_reference(qh, kh, vh, causal=True,
+                              q_offset=q_offset).transpose(1, 2)
+    share = _bf16_share(out, ref)
+    assert share <= 1, f"bf16 error is {share:.3f} of its limit"
+    assert torch.equal(out, flash_attention(q, k, v, causal=True,
+                                            q_offset=q_offset))
+    for band in bands:
+        got = fa_kernel.flash_attention_fwd(qh, kh, vh, causal=True,
+                                            q_offset=q_offset, band=band)
+        assert torch.equal(got.transpose(1, 2), out), band
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dh", [8, 12, 16, 20])
 def test_kernels_at_the_reduced_head_dims(cuda_device, dtype, dh):
@@ -296,8 +329,11 @@ def test_kernels_at_the_reduced_head_dims(cuda_device, dtype, dh):
 def _jittered_flash_source(race):
     """flash_attention.cu with a warpgroup-uniform pseudo-random sleep of
     0-4 us before every consumer step and producer load; `race` plants a
-    stage ("kv") or the Q tile ("q") handed back to the producer before
-    the wgmma that reads it is issued."""
+    slot handed back to the producer, and a sleep, before the wgmma that
+    reads it is issued: the K slot of an item's first tile ("k"; there
+    the previous item's last V slot is already back, so the producer,
+    STAGES tiles ahead on an item of more tiles, can be waiting on just
+    that K slot), a V slot ("v") or the Q tile ("q")."""
     def sub(text, a, b):
         assert text.count(a) == 1, a
         return text.replace(a, b)
@@ -312,31 +348,43 @@ __device__ __forceinline__ uint32_t smem_u32(""")
                     ("  const int s = g % L::STAGES;\n  mbar_wait(c.v_full",
                      "c.q_tile * 31u + g + 5u"),
                     ("      mbar_wait(q_full, j & 1);",
-                     "c.q_tile * 31u + j * 101u"),
+                     "threadIdx.x / 128 * 31u + j * 101u"),
                     ("        mbar_wait(q_empty, (j & 1) ^ 1);",
                      "104729u + j * 17u"),
-                    ("          mbar_wait(empty + 8 * s,", "104729u + g")):
+                    ("          mbar_wait(k_empty + 8 * s,", "104729u + g"),
+                    ("          mbar_wait(v_empty + 8 * s,",
+                     "104729u + g + 7u")):
         pad = a[:len(a) - len(a.lstrip(" \n"))].split("\n")[-1]
         at = a.rindex("mbar_wait(")
         s = sub(s, a, f"{a[:at]}jitter(blockIdx.x * 7919u + {seed});\n"
                 f"{pad}{a[at:]}")
     issue = "  issue_values<L>(o, p, c.base + L::V + sp * L::KV_BYTES);\n"
-    if race == "kv":
-        s = sub(s, "  fence_regs(o);\n  mbar_arrive(c.empty + 8 * sp);\n",
+    if race == "k":
+        s = sub(s, "      fence_regs(sc);\n"
+                "      mbar_arrive(k_empty + 8 * s);\n",
+                "      fence_regs(sc);\n")
+        first = ("      issue_scores<L>(sc, c.q_tile, base + L::K + s * "
+                 "L::KV_BYTES);\n")
+        s = sub(s, first, "      mbar_arrive(k_empty + 8 * s);\n"
+                "      jitter(blockIdx.x * 7u + c.g0 + 1u);\n" + first)
+    if race == "v":
+        s = sub(s, "  fence_regs(o);\n  mbar_arrive(c.v_empty + 8 * sp);\n",
                 "  fence_regs(o);\n")
-        s = sub(s, issue, "  mbar_arrive(c.empty + 8 * sp);\n"
+        s = sub(s, issue, "  mbar_arrive(c.v_empty + 8 * sp);\n"
                 "  jitter(blockIdx.x * 7u + g);\n" + issue)
     if race == "q":
         s = sub(s, "  if (it == c.n_tiles - 1) mbar_arrive(c.q_empty);\n", "")
-        s = sub(s, "  issue_scores<L>(sc, c.q_tile, c.base",
+        s = sub(s, "  issue_scores<L>(sc, c.q_tile, c.base + L::K + s * "
+                "L::KV_BYTES);\n  issue_values",
                 "  if (it == c.n_tiles - 1) {\n    mbar_arrive(c.q_empty);\n"
                 "    jitter(blockIdx.x * 7u + g + 3u);\n  }\n"
-                "  issue_scores<L>(sc, c.q_tile, c.base")
+                "  issue_scores<L>(sc, c.q_tile, c.base + L::K + s * "
+                "L::KV_BYTES);\n  issue_values")
     return s
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("race", [None, "kv", "q"])
+@pytest.mark.parametrize("race", [None, "k", "v", "q"])
 def test_flash_kernel_is_bitwise_stable_under_timing_perturbation(
         cuda_device, tmp_path, monkeypatch, race):
     """The bf16 kernel's ring synchronisation, checked by perturbing its
@@ -345,8 +393,10 @@ def test_flash_kernel_is_bitwise_stable_under_timing_perturbation(
     consumers, the outputs stay bitwise equal to the unperturbed
     kernel's, over several items per CTA (768 items at the training
     shape, 384 at S 700 dh 128, 192 at S 700 dh 160 on its two-stage
-    ring), while a planted early release of a K/V stage or of the Q tile
-    changes them."""
+    ring), in one band and in bands of one (batch, kv head) pair (the
+    order that alternates its bands), while a planted early release of
+    an item's first K slot, of a V slot or of the Q tile changes them
+    (items of up to 8, 6 and 6 key tiles, more than the ring's stages)."""
     src = tmp_path / "csrc" / "flash_attention.cu"
     src.parent.mkdir()
     src.write_text(_jittered_flash_source(race))
@@ -359,13 +409,16 @@ def test_flash_kernel_is_bitwise_stable_under_timing_perturbation(
         q, k, v = (torch.randn(b, h if n == "q" else hkv, s, dh, generator=g
                                ).to(cuda_device, torch.bfloat16)
                    for n in "qkv")
-        monkeypatch.setattr(fa_kernel, "LIBRARY", _FA_LIBRARY)
-        want = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
-        monkeypatch.setattr(fa_kernel, "LIBRARY", jittered)
-        for _ in range(3):
-            got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
-            changed += int((got != want).sum())
-    print(f"planted race {race}: {changed} outputs moved in 9 calls")
+        for band in (b * hkv, 1):
+            monkeypatch.setattr(fa_kernel, "LIBRARY", _FA_LIBRARY)
+            want = fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                                 band=band)
+            monkeypatch.setattr(fa_kernel, "LIBRARY", jittered)
+            for _ in range(3):
+                got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                                    band=band)
+                changed += int((got != want).sum())
+    print(f"planted race {race}: {changed} outputs moved in 18 calls")
     if race is None:
         assert changed == 0, f"{changed} outputs moved under perturbation"
     else:

@@ -217,6 +217,220 @@ def test_tiled_plain_version_uses_the_kernels_tiles(name):
                          re.M)[1]) == fa_ref.BLOCK
 
 
+# --------------------------------------------- the bf16 kernel's order ----
+
+MIB = 1 << 20
+H100_L2 = 50 * MIB          # torch.cuda.get_device_properties().L2_cache_size
+
+# (B, H, Hkv, Sq, Skv, causal, q_offset): the chip's five B3 rows, ragged
+# Sq and Skv, non-causal, and query slices at offsets on and off the
+# 128-key grid
+ORDER_SHAPES = [
+    (8, 12, 4, 1024, 1024, True, 0),
+    (8, 12, 2, 1024, 1024, True, 0),
+    (8, 24, 24, 1024, 1024, True, 0),
+    (8, 32, 8, 1024, 1024, True, 0),
+    (2, 12, 4, 1000, 1000, True, 0),
+    (3, 6, 2, 200, 700, False, 0),
+    (2, 36, 36, 2048, 32768, True, 30720),
+    (1, 8, 2, 300, 4096, True, 300),
+]
+
+
+def _parent_order(b, h, hkv, sq, skv, causal, q_offset):
+    """The order before bands: by query tile, heaviest first, then (head,
+    batch) with the head fastest."""
+    n_qt, hb = -(-sq // 128), h * b
+    out = []
+    for w in range(n_qt * hb):
+        qt = n_qt - 1 - w // hb
+        kend = min(skv, qt * 128 + 128 + q_offset) if causal else skv
+        out.append((qt, (w % hb) % h, (w % hb) // h, -(-kend // 128)))
+    return out
+
+
+def _fast_div(d):
+    """`fast_div` of csrc/flash_attention.cu: (d, mul, shr)."""
+    if d == 1:
+        return d, 0, 0
+    lg = 0
+    while (1 << lg) < d:
+        lg += 1
+    return d, ((1 << (31 + lg)) + d - 1) // d, lg - 1
+
+
+def _quotient(n, f):
+    """`quotient` of csrc/flash_attention.cu (`__umulhi`: the high 32
+    bits of the 64-bit product)."""
+    d, mul, shr = f
+    return n if d == 1 else ((n * mul) >> 32) >> shr
+
+
+def _kernel_work_item(w, b, h, hkv, sq, skv, causal, q_offset, band):
+    """`work_item` of csrc/flash_attention.cu with the arguments
+    `launch_tc` sets up, line for line."""
+    group, n_qt = h // hkv, -(-sq // 128)
+    pairs = b * hkv
+    band = min(band, pairs)
+    n_bands = (pairs + band - 1) // band
+    band_items = _fast_div(band * n_qt * group)
+    band_hb = _fast_div(band * group)
+    last_hb = _fast_div((pairs - (n_bands - 1) * band) * group)
+    k = _quotient(w, band_items)
+    hb = last_hb if k == n_bands - 1 else band_hb
+    r = w - k * band_items[0]
+    if (n_bands - 1 - k) & 1:
+        r = n_qt * hb[0] - 1 - r
+    qt = _quotient(r, hb)
+    f = k * band * group + (r - qt * hb[0])
+    q0 = (n_qt - 1 - qt) * 128
+    bb = _quotient(f, _fast_div(h))
+    kend = min(skv, q0 + 128 + q_offset) if causal else skv
+    return (q0 // 128, f - bb * h, bb, (kend + 127) // 128)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 7, 12, 24, 36, 96, 100, 127,
+                               128, 129, 768, 1000, 2304, 99991,
+                               (1 << 20) + 1, (1 << 30) + 3, (1 << 31) - 1])
+def test_fast_division_is_exact(d):
+    """The kernel's quotient by a multiply and a shift equals n // d for
+    every int n in [0, 2^31) near 0, near multiples of d and at the top
+    (the work order's dividends are item indices, below 2^31)."""
+    f = _fast_div(d)
+    assert 0 <= f[1] < 1 << 32
+    rng = np.random.default_rng(d)
+    ns = {*range(4096), (1 << 31) - 1, *((1 << 31) - 1 - np.arange(4096))}
+    for m in rng.integers(0, (1 << 31) // d, 4096):
+        ns.update(int(m) * d + e for e in (-1, 0, 1, d - 1))
+    for n in ns:
+        if 0 <= n < 1 << 31:
+            assert _quotient(int(n), f) == n // d, n
+
+
+def _bands(shape, l2):
+    b, h, hkv, sq, skv, causal, off = shape
+    return [fa_kernel.kv_band(b, hkv, skv, 64, l2), 1, 2, 3, b * hkv]
+
+
+@pytest.mark.parametrize("shape", ORDER_SHAPES)
+def test_work_order_is_a_permutation_of_the_items(shape):
+    """Every band size gives each (query tile, head, batch) once, with
+    its causal key-tile count."""
+    b, h, hkv, sq, skv, causal, off = shape
+    want = sorted(_parent_order(*shape))
+    for band in _bands(shape, H100_L2):
+        got = fa_kernel.work_items(b, h, hkv, sq, skv, causal, off, band)
+        assert sorted(got) == want, band
+
+
+@pytest.mark.parametrize("shape", ORDER_SHAPES)
+def test_work_order_is_what_the_kernel_computes(shape):
+    """The plain order equals the kernel's `work_item` for w = 0, 1, ...,
+    including a last band that is smaller (3 pairs a band), an odd and
+    an even number of bands (1 and 2 pairs a band), and one band."""
+    b, h, hkv, sq, skv, causal, off = shape
+    n = -(-sq // 128) * h * b
+    for band in _bands(shape, H100_L2 // 8):
+        got = [_kernel_work_item(w, b, h, hkv, sq, skv, causal, off, band)
+               for w in range(n)]
+        assert got == fa_kernel.work_items(b, h, hkv, sq, skv, causal, off,
+                                           band), band
+
+
+@pytest.mark.parametrize("shape", ORDER_SHAPES)
+@pytest.mark.parametrize("parts,whole", [(16, 16), (8, 8), (4, 4), (2, 2),
+                                         (8, 4)])
+def test_bands_hold_whole_groups_within_their_share_of_l2(
+        shape, parts, whole, monkeypatch):
+    """A whole K/V within l2 / whole is one band.  Otherwise a band is a
+    run of whole (batch, kv head) pairs, so no GQA group is split, in as
+    few bands as keep each within l2 / parts (a pair alone larger than
+    that is a band of its own).  Inside a band the query tiles' weights
+    run one way: heaviest first in the last band, and the bands before
+    it alternate, so two neighbours meet at their light ends or their
+    heavy ones.  (8, 4) is the wrapper's rule."""
+    b, h, hkv, sq, skv, causal, off = shape
+    group = h // hkv
+    if (parts, whole) == (8, 4):
+        assert (fa_kernel.L2_PARTS, fa_kernel.L2_WHOLE) == (8, 4)
+    monkeypatch.setattr(fa_kernel, "L2_PARTS", parts)
+    monkeypatch.setattr(fa_kernel, "L2_WHOLE", whole)
+    for l2 in (H100_L2, 40 * MIB, 6 * MIB):
+        for dh in (64, 128, 160):
+            band = fa_kernel.kv_band(b, hkv, skv, dh, l2)
+            pair = 2 * skv * dh * 2
+            if b * hkv * pair <= l2 // whole:
+                assert band == b * hkv
+            else:
+                assert band * pair <= l2 // parts or band == 1
+                n_bands = -(-b * hkv // band)
+                assert (n_bands == 1 or
+                        -(-b * hkv // (n_bands - 1)) * pair > l2 // parts)
+            items = fa_kernel.work_items(b, h, hkv, sq, skv, causal, off,
+                                         band)
+            per_band = band * group * -(-sq // 128)
+            n_bands = -(-b * hkv // band)
+            for i in range(0, len(items), per_band):
+                mine = items[i:i + per_band]
+                pairs = {bb * hkv + hh // group for _, hh, bb, _ in mine}
+                assert pairs == set(range(i // per_band * band,
+                                          i // per_band * band + len(pairs)))
+                assert {(hh, bb) for _, hh, bb, _ in mine} == {
+                    (u % hkv * group + gi, u // hkv) for u in pairs
+                    for gi in range(group)}
+                tiles = [nt for *_, nt in mine]
+                heavy_first = (n_bands - 1 - i // per_band) % 2 == 0
+                assert tiles == sorted(tiles, reverse=heavy_first)
+                if i + per_band >= len(items):
+                    assert heavy_first, "the last band runs heaviest first"
+
+
+@pytest.mark.parametrize("shape", [ORDER_SHAPES[0], ORDER_SHAPES[1],
+                                   ORDER_SHAPES[4], ORDER_SHAPES[5]])
+def test_a_kv_that_fits_one_band_keeps_the_parent_order(shape):
+    """The demo LM's K/V (8.4 MB) fits a quarter of the H100's L2: one
+    band, the order by query tile that the kernel had before bands (and
+    that its one-band instance decodes directly, `one_band_item`)."""
+    b, h, hkv, sq, skv, causal, off = shape
+    band = fa_kernel.kv_band(b, hkv, skv, 64, H100_L2)
+    assert band == b * hkv
+    assert fa_kernel.work_items(b, h, hkv, sq, skv, causal, off, band) == \
+        _parent_order(*shape)
+
+
+def test_band_rule_at_the_chips_shapes(monkeypatch):
+    """At the H100's 50 MiB L2: MHA dh 64 (50.3 MB of K/V) in 8 bands of
+    24 pairs (an eighth of L2 each), stablelm's dh 160 (41.9 MB) in 7 of
+    10 (the last of 4), granite's H 16/8 (16.8 MB) in 3 of 22, the 32k
+    offset row one pair a band (8.4 MB each); the demo LM and qwen2-vl
+    (8.4 MB each, within a quarter of L2) one band, two at an eighth
+    alone; and the K/V bytes each order reads (loaded by every item, and
+    the misses `kv_traffic`'s model of L2 counts)."""
+    rule = fa_kernel.kv_band
+    assert rule(8, 24, 1024, 64, H100_L2) == 24
+    assert rule(8, 8, 1024, 160, H100_L2) == 10
+    assert rule(8, 8, 1024, 64, H100_L2) == 22
+    assert rule(2, 36, 32768, 64, H100_L2) == 1
+    assert rule(8, 4, 1024, 64, H100_L2) == 32
+    assert rule(8, 2, 1024, 128, H100_L2) == 16
+    with monkeypatch.context() as m:
+        m.setattr(fa_kernel, "L2_WHOLE", 8)
+        assert rule(8, 4, 1024, 64, H100_L2) == 16
+    mb = {name: tuple(round(x / 1e6, 1) for x in fa_kernel.kv_traffic(
+        *args, l2_bytes=H100_L2)) for name, args in {
+        "mha one band": (8, 24, 24, 1024, 1024, 64, True, 0, 192),
+        "mha": (8, 24, 24, 1024, 1024, 64, True, 0, 24),
+        "dh160 one band": (8, 32, 8, 1024, 1024, 160, True, 0, 64),
+        "dh160": (8, 32, 8, 1024, 1024, 160, True, 0, 10),
+        "offset one band": (2, 36, 36, 2048, 32768, 64, True, 30720, 72),
+        "offset": (2, 36, 36, 2048, 32768, 64, True, 30720, 1),
+        "demo": (8, 12, 4, 1024, 1024, 64, True, 0, 32)}.items()}
+    assert mb == {"mha one band": (226.5, 226.5), "mha": (226.5, 50.3),
+                  "dh160 one band": (755.0, 188.7), "dh160": (755.0, 41.9),
+                  "offset one band": (9380.6, 9380.6),
+                  "offset": (9380.6, 604.0), "demo": (113.2, 8.4)}
+
+
 # ----------------------------------------------------------- dispatch ----
 
 @pytest.fixture

@@ -79,12 +79,15 @@ class _Recorder:
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """(library recorder, shapes the device checks were given)."""
+    """(library recorder, shapes the device checks were given).  The
+    flash wrapper's device query (the card's L2 size, for its band rule)
+    stands in for a card too."""
     lib, checked = _Recorder(), []
     for mod in (fa, da):
         monkeypatch.setattr(mod, "LIBRARY", lib)
         monkeypatch.setattr(mod, "_check", lambda *ts, **kw: checked.append(
             [tuple(t.shape) for t in ts[:3]]))
+    monkeypatch.setattr(fa, "_l2_bytes", lambda device: 50 << 20)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
