@@ -16,6 +16,7 @@
   python3 chip_smoke.py --phase 24   # phases 1 and 24 only, no result line
   python3 chip_smoke.py --phase 25   # phases 1 and 25 only, no result line
   python3 chip_smoke.py --phase 26   # phases 1 and 26 only, no result line
+  python3 chip_smoke.py --phase 28   # phases 1 and 28 only, no result line
   python3 chip_smoke.py --b3-against SRC  # B3 against a build of an older
                                           # source, no phases (b3_against)
 
@@ -394,6 +395,22 @@ phase took.
    peak on the card is printed beside the fake-mode estimate (the card
    peaks inside the plain attention backward's softmax backward, which
    neither sees: `python -m repro_torch.analysis.op_memory`).
+28. recurrentgemma-2b on the production meshes (slice 15): the dry run
+   sets the RG-LRU config's `attn_impl` to "chunked", as the reference's
+   does, so the windowed attention runs `attention_chunked` (each KV
+   block's step under its own checkpoint while grad is on).  (a)
+   prefill_32k and (b) train_4k (2 microbatches of 8 rows) as rank 0 of
+   a fake (16, 16) group on the card, each beside its fake-mode estimate
+   (two dry-run CLI processes, started before phase 24): the card's own
+   peak within 0.8-1.25x of it; 8 (prefill) or 32 (train: remat,
+   2 microbatches) multi-row attention calls, all `attention_chunked`
+   and none `attention_ref` (a spy on the module's functions); no f32
+   tensor of a whole-sequence (S, S) shape made on the rank (a dispatch
+   mode); B4's forward and backward launches equal to the fake run's
+   counts; the prefill's estimate under the dry run's default 16 GiB and
+   its 18 B4 launches all at the local shape (2, 32768, 160) f32.  (c)
+   B4 at that shape bitwise its plain version, timed (L2 flushed)
+   beside its bytes bound and the plain version.
 
 Exits non-zero on any failed check or without a CUDA device.  The last
 line is {"ok": true, "device": {...}}; the line before it is the card's
@@ -412,9 +429,12 @@ to `flash_attention`, 24c's to `flash_attention_dh160`; phase 25b's B1,
 B2, B3 and B4 launches to the `decode_attention`, `paged_decode_attention`,
 `flash_attention` and `rglru_scan` rows; `decode_attention_lse` (B1
 with its log-sum-exp) and `flash_attention_offset` (B3 at a query
-offset) phase 26c's), errors, times and bounds; B4's rows also name
-their copy path.
+offset) phase 26c's; `rglru_scan_seq32k` (B4 at (2, 32768, 160)) phase
+28a's, `rglru_scan_train4k` and `rglru_scan_bwd_train4k` (B4's forward
+and backward at (8, 4096, 160)) phase 28b's), errors, times and bounds;
+B4's rows also name their copy path.
 """
+import contextlib
 import gc
 import json
 import os
@@ -5009,6 +5029,311 @@ def seqpar_paths(torch, timer, smi, estimate):
     return [lse_row, off_row]
 
 
+RGLRU_CELLS_TITLE = ("phase 28: recurrentgemma-2b prefill_32k and train_4k "
+                     "as rank 0 of a fake (16, 16) group on the card (the "
+                     "windowed attention through attention_chunked), B4 "
+                     "at both cells' local shapes")
+RG_PREFILL_SHAPE = (2, 32768, 160)       # 32 / 16 rows, 2560 / 16 channels
+RG_TRAIN_SHAPE = (8, 4096, 160)          # a microbatch's 8 rows
+
+
+def start_rglru_estimates(threads):
+    """28's fake-mode estimates of recurrentgemma-2b prefill_32k and
+    train_4k (host work only, 45-80 s), two dry-run CLI processes started
+    on `threads` before phase 24."""
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    return threads.submit(_launchers, [(
+        "-m", "repro_torch.launch.dryrun", "--arch", "recurrentgemma-2b",
+        "--shape", shape, "--mesh", "single", "--chip", "h100", "--out",
+        os.path.join(out_dir, "fake")) for shape in ("prefill_32k",
+                                                      "train_4k")], 600)
+
+
+def square_scores(s):
+    """A dispatch mode for the card: `biggest`, the bytes of the largest
+    f32 tensor an op makes whose last two dims are (s, s), a
+    whole-sequence score tensor (0 when there is none).  DTensor ops are
+    handed back (NotImplemented), so it sees each rank's local tensors,
+    and ops under a fake mode (DTensor's shape inference) are left out."""
+    import torch
+    from torch._guards import active_fake_mode
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class SquareScores(TorchDispatchMode):
+        biggest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if active_fake_mode() is None:
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and t.dim() >= 2 and \
+                            tuple(t.shape[-2:]) == (s, s) and \
+                            t.dtype == torch.float32:
+                        self.biggest = max(self.biggest,
+                                           t.numel() * t.element_size())
+            return out
+    return SquareScores()
+
+
+@contextlib.contextmanager
+def spy(module, names, keep):
+    """Counts the calls of `module`'s functions `names` whose first
+    argument passes `keep`, by name and by that argument's (shape,
+    dtype), and launches nothing; yields (counts, shapes)."""
+    from collections import Counter
+    counts, shapes = Counter(), Counter()
+    saved = {n: getattr(module, n) for n in names}
+
+    def counted(name, fn):
+        def call(t, *args, **kwargs):
+            if keep(t):
+                counts[name] += 1
+                shapes[(tuple(t.shape), str(t.dtype))] += 1
+            return fn(t, *args, **kwargs)
+        return call
+    for n, fn in saved.items():
+        setattr(module, n, counted(n, fn))
+    try:
+        yield counts, shapes
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def kernel_args(ops, names):
+    """Hands the `kernel` module that `ops` launches through over to a
+    proxy whose wrappers `names` record each call's (shape, dtypes of
+    its tensors) and then call the real wrapper (whose own count still
+    counts the launch); yields {name: {(shape, dtypes): calls}}."""
+    from collections import Counter
+    real = ops.kernel
+    seen = {n: Counter() for n in names}
+
+    class Proxy:
+        def __getattr__(self, name):
+            return getattr(real, name)
+    proxy = Proxy()
+    for n in names:
+        def call(*ts, _n=n):
+            seen[_n][(tuple(ts[0].shape), "/".join(sorted(
+                {str(t.dtype) for t in ts})))] += 1
+            return getattr(real, _n)(*ts)
+        setattr(proxy, n, call)
+    ops.kernel = proxy
+    try:
+        yield seen
+    finally:
+        ops.kernel = real
+
+
+def rglru_cell(shape, seq_len):
+    """One recurrentgemma-2b cell as rank 0 of a fake (16, 16) group on
+    the card, the attention and B4 spied on: returns (the card's result,
+    multi-row attention calls, B4's forward and backward calls by (shape,
+    dtype), B4 forward and backward launches, the largest (S, S) f32
+    tensor)."""
+    from repro_torch.kernels.rglru_scan import kernel as b4
+    from repro_torch.kernels.rglru_scan import ops as b4_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    from repro_torch.models import layers
+    b4.rglru_scan_fwd.launches = b4.rglru_scan_bwd.launches = 0
+    with spy(layers, ("attention_chunked", "attention_ref"),
+             lambda q: q.shape[1] > 1) as (attn, _), \
+            kernel_args(b4_ops, ("rglru_scan_fwd",
+                                 "rglru_scan_bwd")) as b4s, \
+            square_scores(seq_len) as sq:
+        real = dryrun.run_cell("recurrentgemma-2b", shape, False, out_dir,
+                               device="cuda", chip="h100", verbose=False)
+    launches = (b4.rglru_scan_fwd.launches, b4.rglru_scan_bwd.launches)
+    return (real, dict(attn), {n: dict(c) for n, c in b4s.items()},
+            launches, sq.biggest)
+
+
+def rglru_cells_phase(torch, smi, estimate):
+    """28a and 28b.  recurrentgemma-2b prefill_32k and train_4k as rank 0
+    of a fake (16, 16) group on the card (the dry run's attn_impl
+    "chunked", as the reference's), each beside its fake-mode estimate
+    (`estimate`, the future of `start_rglru_estimates`): the card's own
+    peak within 0.8-1.25x of it; the windowed attention through
+    attention_chunked (8 layers, one multi-row call each a forward),
+    never attention_ref; no f32 (S, S) score tensor made anywhere on the
+    rank; B4's launches.  prefill_32k: 18 B4 launches, all at the local
+    shape (2, 32768, 160) f32, the estimate under the dry run's default
+    16 GiB.  train_4k (2 microbatches of 8 rows): B4's forward and
+    backward launches equal the fake run's counts, all at the local shape
+    (8, 4096, 160) f32.  The fake group moves no data, so the values are
+    not checked here (the CPU tests hold the chunked model against the
+    reference; 28c holds B4 at both local shapes against its plain
+    version).  Returns {shape: (B4 forward launches, B4 backward
+    launches)}.  The step seconds printed are taken under the dry run's
+    counters and this phase's spies, not a step's time on the card."""
+    from repro_torch.launch.dryrun import RESULTS_DIR as out_dir
+    t0 = time.perf_counter()
+    results = estimate.result()
+    for (rc, stdout, stderr, _), shape in zip(results, ("prefill_32k",
+                                                       "train_4k")):
+        check(rc == 0, f"the fake-mode dry run of recurrentgemma-2b {shape} "
+              f"failed ({rc}):\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    est = {}
+    for shape in ("prefill_32k", "train_4k"):
+        with open(os.path.join(out_dir, "fake", f"recurrentgemma-2b_{shape}"
+                               f"_single.json")) as f:
+            est[shape] = json.load(f)
+    print(f"  the fake-mode estimates ({results[0][3]:.1f} s and "
+          f"{results[1][3]:.1f} s in processes of their own), waited on "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for shape in ("prefill_32k", "train_4k"):
+        e = est[shape]
+        t1 = time.perf_counter()
+        real, attn, b4s, (fwd, bwd), square = rglru_cell(shape,
+                                                          e["seq_len"])
+        ratio = real["own_peak_bytes"] / e["memory_peak_bytes"]
+        k = e["flops"]["per_kernel"]
+        want_fwd = k["rglru_scan"]["calls"]
+        want_bwd = k.get("rglru_scan_bwd", {}).get("calls", 0)
+        print(f"  28{'a' if shape == 'prefill_32k' else 'b'}: "
+              f"recurrentgemma-2b {shape}, rank 0 of (16, 16): "
+              f"{time.perf_counter() - t1:.1f} s (its step under the "
+              f"counters {real['seconds']:.2f} s) | max_memory_allocated "
+              f"{real['max_memory_allocated'] / GIB:.2f} GiB, the step's own"
+              f" peak {real['own_peak_bytes'] / GIB:.2f} GiB vs the "
+              f"fake-mode estimate {e['memory_peak_bytes'] / GIB:.2f} GiB "
+              f"(ratio {ratio:.3f}; by category {e['memory_peak']}); "
+              f"MemTracker on the card {real['memory_peak_bytes'] / GIB:.2f}"
+              f" GiB (by category {real['memory_peak']}) | multi-row "
+              f"attention calls {attn} | largest (S, S) f32 tensor "
+              f"{square} B | B4 forward {fwd} launches (the fake run "
+              f"{want_fwd}) at {b4s['rglru_scan_fwd']}, backward {bwd} (the"
+              f" fake run {want_bwd}) at {b4s['rglru_scan_bwd']} | FLOPs "
+              f"per rank {e['flops']['total'] / 1e12:.3f} T, wire {e['collectives']['wire_bytes'] / 2**20:.1f} MiB "
+              f"| {smi}", flush=True)
+        check(attn == {"attention_chunked": 8 * (1 if shape == "prefill_32k"
+                                                 else 2 * 2)},
+              f"{shape}: multi-row attention calls {attn}, want "
+              f"attention_chunked only, once a local-attention layer a "
+              f"forward (the train step's remat runs each forward twice, "
+              f"2 microbatches)")
+        check(square == 0, f"{shape}: an f32 (S, S) score tensor of {square}"
+              f" B was made")
+        check(0.8 <= ratio <= 1.25, f"{shape}: the card's own peak is "
+              f"{ratio:.3f}x the fake-mode estimate, outside 0.8-1.25x")
+        check(fwd == want_fwd and bwd == want_bwd, f"{shape}: B4 launched "
+              f"{fwd} forward and {bwd} backward, the fake run counted "
+              f"{want_fwd} and {want_bwd}")
+        if shape == "prefill_32k":
+            # the dry run's default chip (ChipSpec) holds 16 GiB
+            check(e["memory_peak_bytes"] < 16 * GIB,
+                  f"prefill_32k's estimate "
+                  f"{e['memory_peak_bytes'] / GIB:.2f} GiB is not under "
+                  f"16 GiB")
+            want = {"rglru_scan_fwd": {(RG_PREFILL_SHAPE, "torch.float32"):
+                                       18}, "rglru_scan_bwd": {}}
+        else:
+            want = {"rglru_scan_fwd": {(RG_TRAIN_SHAPE, "torch.float32"):
+                                       want_fwd},
+                    "rglru_scan_bwd": {(RG_TRAIN_SHAPE, "torch.float32"):
+                                       want_bwd}}
+        # 28c holds B4 against its plain version at these shapes, f32
+        check(b4s == want, f"{shape}: B4 called at {b4s}, want {want}")
+        out[shape] = (fwd, bwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rglru_rank_rows(torch, timer, smi):
+    """28c.  B4 at the local shapes 28a and 28b give it, f32, the shapes
+    and dtype their spies check: the forward at prefill_32k's (2, 32768,
+    160) and train_4k's (8, 4096, 160), bitwise against the plain
+    version; the backward at (8, 4096, 160), bit patterns equal to the
+    plain reverse walk.  Each timed (L2 flushed) beside its bytes bound
+    and its plain version.  Returns {shape: its rows of the kernels line}
+    (launches set by the caller)."""
+    from repro_torch.kernels.rglru_scan import kernel as b4
+    from repro_torch.kernels.rglru_scan import (
+        rglru_scan_backward_reference, rglru_scan_reference)
+    dev = torch.device("cuda")
+    src = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
+    rows = {}
+    for cell, (b, s, d), name in (
+            ("prefill_32k", RG_PREFILL_SHAPE, "rglru_scan_seq32k"),
+            ("train_4k", RG_TRAIN_SHAPE, "rglru_scan_train4k")):
+        g = torch.Generator().manual_seed(b * s + d)
+        a = torch.empty(b, s, d).uniform_(0.2, 0.999, generator=g).to(dev)
+        x, go = (torch.randn(b, s, d, generator=g).to(dev) for _ in range(2))
+        path = b4.copy_path(a, x)
+        out = b4.rglru_scan_fwd(a, x)
+        ref = rglru_scan_reference(a, x)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(bits_equal(torch, out, ref), f"B4 f32 {b}x{s}x{d} ({path}): "
+              f"not bitwise equal to the plain version (max abs err {err})")
+        ms = timer.ms(lambda: b4.rglru_scan_fwd(a, x))
+        plain_ms = timer.ms(lambda: rglru_scan_reference(a, x), iters=2)
+        bms, by = scan_bound(b, s, d, 4)
+        print(f"  28c: rglru_scan @ B={b} S={s} D={d} f32 ({path}), "
+              f"{cell}'s: bitwise the plain version | {ms * 1e3:.2f} us | "
+              f"bound {bms * 1e3:.2f} us ({by}: {3 * b * s * d * 4 / 1e6:.1f}"
+              f" MB), {bms / ms:.3f} of it | plain {plain_ms * 1e3:.2f} us |"
+              f" library: none | {smi}", flush=True)
+        rows[cell] = [{"name": name, "route": "cuda", "source": src,
+                       "replaces": "src/repro/kernels/rglru_scan/kernel.py:26",
+                       "path": path, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None}]
+        if cell == "train_4k":
+            h = ref
+            path = b4.copy_path(a, h, go)
+            got = b4.rglru_scan_bwd(a, h, go)
+            want = rglru_scan_backward_reference(a, h, go)
+            torch.cuda.synchronize()
+            err = max((u - w).abs().max().item() for u, w in zip(got, want))
+            check(all(bits_equal(torch, u, w) for u, w in zip(got, want)),
+                  f"B4 backward f32 {b}x{s}x{d} ({path}): not bitwise equal "
+                  f"to the plain reverse walk (max abs err {err})")
+            ms = timer.ms(lambda: b4.rglru_scan_bwd(a, h, go))
+            plain_ms = timer.ms(lambda: rglru_scan_backward_reference(
+                a, h, go), iters=2)
+            bms, by = scan_bwd_bound(b, s, d)
+            print(f"  28c: rglru_scan_bwd @ B={b} S={s} D={d} f32 ({path}), "
+                  f"{cell}'s: bit patterns equal to the plain reverse walk | "
+                  f"{ms * 1e3:.2f} us | bound {bms * 1e3:.2f} us ({by}: "
+                  f"{5 * b * s * d * 4 / 1e6:.1f} MB), {bms / ms:.3f} of it |"
+                  f" plain {plain_ms * 1e3:.2f} us | library: none | {smi}",
+                  flush=True)
+            rows[cell].append({
+                "name": "rglru_scan_bwd_train4k", "route": "cuda",
+                "source": src,
+                "replaces": "src/repro/kernels/rglru_scan/ops.py:28",
+                "path": path, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": None})
+        del a, x, go, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rglru_cells_paths(torch, timer, smi, estimate):
+    """Phase 28; returns B4's rows at the two cells' local shapes, each
+    with its launches in its cell: the forward's 18 in prefill_32k, the
+    forward's and the backward's in train_4k."""
+    t0 = time.perf_counter()
+    cells = rglru_cells_phase(torch, smi, estimate)
+    print(f"  28a/28b took {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = rglru_rank_rows(torch, timer, smi)
+    for cell, cell_rows in rows.items():
+        for row, n in zip(cell_rows, cells[cell]):
+            row["launches"] = n
+    return rows["prefill_32k"] + rows["train_4k"]
+
+
 def _declare_b3_before_bands(lib):
     """`flash_attention_launch` as it was before the work order's bands
     (no `band` argument)."""
@@ -5146,16 +5471,17 @@ def main(argv):
     only_mesh = argv == ["--phase", "24"]
     only_lint = argv == ["--phase", "25"]
     only_seqpar = argv == ["--phase", "26"]
+    only_rglru = argv == ["--phase", "28"]
     b3_source = argv[1] if len(argv) == 2 and argv[0] == "--b3-against" \
         else None
     if argv and b3_source is None and not (
             only_2c or only_new or only_plane or only_family or only_branch
             or only_slice8 or only_family_train or only_paper or only_mesh
-            or only_lint or only_seqpar):
+            or only_lint or only_seqpar or only_rglru):
         print("usage: chip_smoke.py [--phase 2c | --phase 8 | --phase 11 | "
               "--phase 14 | --phase 17 | --phase 20 | --phase 21 | "
               "--phase 23 | --phase 24 | --phase 25 | --phase 26 | "
-              "--b3-against SRC]",
+              "--phase 28 | --b3-against SRC]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5278,6 +5604,15 @@ def main(argv):
         print(json.dumps({"kernels": seq_rows}))
         print("phase 26 alone: no result line")
         return 0
+    if only_rglru:
+        phase(RGLRU_CELLS_TITLE)
+        with ThreadPoolExecutor(1) as threads:
+            rg_rows = rglru_cells_paths(torch, timer, smi,
+                                        start_rglru_estimates(threads))
+        phase()
+        print(json.dumps({"kernels": rg_rows}))
+        print("phase 28 alone: no result line")
+        return 0
     if only_2c:
         phase("phase 2c: RG-LRU scan kernel vs plain version; B1 at "
               "head_dim 256")
@@ -5368,7 +5703,7 @@ def main(argv):
     torch.cuda.empty_cache()
 
     # 24c's and 26c's fake-mode estimates, beside phase 23 and 24
-    est_threads = ThreadPoolExecutor(2)
+    est_threads = ThreadPoolExecutor(3)
     estimate = start_estimate(est_threads)
     seq_estimate = start_seqpar_estimate(est_threads)
     phase(PAPER_TITLE)
@@ -5378,6 +5713,8 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 28's fake-mode estimates, beside phases 24-26
+    rg_estimate = start_rglru_estimates(est_threads)
     phase(MESH_TITLE)
     mesh = mesh_paths(torch, smi, estimate)
     rows[2]["launches"] += mesh["B3"]        # 24a, through local_map
@@ -5399,6 +5736,11 @@ def main(argv):
 
     phase(SEQPAR_TITLE)
     rows.extend(seqpar_paths(torch, timer, smi, seq_estimate))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(RGLRU_CELLS_TITLE)
+    rows.extend(rglru_cells_paths(torch, timer, smi, rg_estimate))
     est_threads.shutdown()
     check(all(r.get("launches", 0) > 0 for r in rows),
           "a kernel row was never launched on its main path")

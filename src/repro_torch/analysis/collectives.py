@@ -15,8 +15,10 @@ the reference's HLO describes.
 (all-reduce, all-gather, reduce-scatter, all-to-all,
 collective-permute) `bytes`, `counts` and `bytes_by_dtype`, plus
 `wire_bytes` with the same WIRE_FACTOR (ring algorithms, N participants:
-an all-reduce moves ~2x its buffer per device, the others ~1x).  Eager
-mode executes every collective it counts, a loop's included, so the
+an all-reduce moves ~2x its buffer per device, the others ~1x).
+`by_site()` splits the same bytes by the line of the port that issued
+each collective (and its result's shapes), forward and backward apart.
+Eager mode executes every collective it counts, a loop's included, so the
 loop-aware total equals the plain one and `unknown_loops` is always
 empty.
 
@@ -41,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import sys
 from collections import Counter, defaultdict
+from typing import NamedTuple
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -110,9 +113,53 @@ def _has_dtensor(types) -> bool:
     return any(issubclass(t, DTensor) for t in types)
 
 
+class Record(NamedTuple):
+    """One collective: its kind, its result's bytes by dtype name, the
+    site that issued it (`_site`) and its result tensors' shapes."""
+    kind: str
+    bytes_by_dtype: dict
+    site: str
+    shapes: tuple
+
+
+# modules that place or hand over tensors for their callers: a collective
+# issued in one is also named by the first frame outside them
+_HELPERS = ("repro_torch.distributed.hints", "repro_torch.kernels._boundary")
+
+
+def _where(f) -> str:
+    path = f.f_code.co_filename.replace("\\", "/")
+    path = path.split("/repro_torch/", 1)[-1]
+    return f"{path}:{f.f_lineno} {f.f_code.co_name}"
+
+
+def _site() -> str:
+    """The innermost frame of the port (not this module) on the Python
+    stack, as "file:line function", with " <- " and the first frame
+    outside the placement helpers where the innermost is one of them;
+    " [backward]" inside a backward pass (a remat's recompute included).
+    A backward op that autograd runs with no frame of the port on the
+    stack is "autograd [backward]"."""
+    names = []
+    f = sys._getframe(2)
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod.startswith("repro_torch.") and mod != __name__:
+            names.append(_where(f))
+            if not mod.startswith(_HELPERS):
+                break
+        f = f.f_back
+    if len(names) > 1:
+        names = [names[0], names[-1]]
+    site = " <- ".join(names) or "autograd"
+    if torch._C._current_graph_task_id() != -1:
+        site += " [backward]"
+    return site
+
+
 class CollectiveCounter(TorchDispatchMode):
     """Records every collective dispatched inside it: `records` is a list
-    of (kind, {dtype name: bytes}) in dispatch order."""
+    of `Record`s in dispatch order."""
 
     def __init__(self):
         super().__init__()
@@ -130,20 +177,41 @@ class CollectiveCounter(TorchDispatchMode):
             for t in ts:
                 by[DTYPE_NAMES.get(t.dtype, str(t.dtype))] += \
                     t.numel() * t.element_size()
-            self.records.append((kind, dict(by)))
+            self.records.append(Record(kind, dict(by), _site(),
+                                       tuple(tuple(t.shape) for t in ts)))
         return out
 
     def collective_bytes(self) -> dict:
         return collective_bytes(self.records)
 
+    def by_site(self) -> dict:
+        return by_site(self.records)
+
+
+def by_site(records) -> dict:
+    """Bytes, counts and wire bytes per (kind, site), largest wire first:
+    "<kind> @ <site>" -> {"bytes", "counts", "wire_bytes", "shapes":
+    {shape: count}}.  The sites' sums are `collective_bytes`'s totals."""
+    sites = {}
+    for r in records:
+        e = sites.setdefault(f"{r.kind} @ {r.site}", {
+            "bytes": 0, "counts": 0, "wire_bytes": 0.0, "shapes": {}})
+        b = sum(r.bytes_by_dtype.values())
+        e["bytes"] += b
+        e["counts"] += 1
+        e["wire_bytes"] += WIRE_FACTOR[r.kind] * b
+        shape = " ".join("x".join(map(str, s)) for s in r.shapes)
+        e["shapes"][shape] = e["shapes"].get(shape, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]["wire_bytes"]))
+
 
 def collective_bytes(records) -> dict:
-    """The reference's schema from (kind, {dtype: bytes}) records: per
-    kind `bytes`, `counts`, `bytes_by_dtype`, and `wire_bytes`."""
+    """The reference's schema from `Record`s: per kind `bytes`, `counts`,
+    `bytes_by_dtype`, and `wire_bytes`."""
     out = defaultdict(int)
     counts = defaultdict(int)
     by_dtype = defaultdict(lambda: defaultdict(int))
-    for kind, by in records:
+    for kind, by, *_ in records:
         counts[kind] += 1
         for dt, b in by.items():
             out[kind] += b
@@ -333,3 +401,4 @@ def sync_debug_warnings():
     finally:
         torch.cuda.set_sync_debug_mode(prev)
         found.extend(w for w in caught if SYNC_WARNING in str(w.message))
+

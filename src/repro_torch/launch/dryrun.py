@@ -17,7 +17,8 @@ For each (arch x shape) cell this script:
      (the aten ops rank 0 runs, counted by `LocalFlopCounter`, plus the
      kernels' own counts, `kernels/_boundary.COUNTS`), HBM bytes (each
      aten op's inputs and outputs, `LocalByteCounter`, plus the kernels'
-     own), collective bytes (`analysis.collectives`), the measured
+     own), collective bytes, in total and by the line of the port that
+     issued them (`analysis.collectives`), the measured
      roofline of those counts and the analytic roofline, both priced at
      `--chip`, into a JSON under `--out` (default build/dryrun/).
 
@@ -28,7 +29,12 @@ rank runs its query rows at their offset, so the ranks of a causal split
 do unequal work (rank 0 the least): a cell records the counted rank's
 query offset and the kernels' FLOPs of every model rank, from the fake
 count at each rank's offset, beside rank 0's; the decode cells shard the
-KV cache's length over "model".
+KV cache's length over "model".  The transformer and RG-LRU families run
+with `attn_impl="chunked"`, as the reference's dry run sets it: the
+attention calls no kernel takes (recurrentgemma's windowed prefill) run
+the online softmax over KV blocks, each block's step recomputed in the
+backward pass, and a config of those families without the field fails
+the build.
 
 By default nothing is allocated: the state and the step run on fake
 tensors (FakeTensorMode, device "cpu"), so the kernels take their fake
@@ -38,6 +44,7 @@ adds `torch.cuda.max_memory_allocated`.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm-12b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch xlstm-350m   # its every shape
   python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
 
 DiLoCo outer-sync cells (--outer-sync): rank 0 of the (2, 16, 16) mesh
@@ -103,6 +110,12 @@ TRAIN_MICROBATCHES = {
 }
 
 CHIPS = {"default": ChipSpec(), "h100": H100_SXM}
+
+# the model families whose attention reads the config's `attn_impl`: the
+# dry run sets it to "chunked" there, as the reference's does on every
+# arch (xLSTM's config keeps no such field: the reference's is unused)
+ATTN_IMPL_FAMILIES = ("repro_torch.models.transformer",
+                      "repro_torch.models.rglru")
 
 
 def _dev(device: str) -> str:
@@ -240,11 +253,13 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
     train_cell = kind == "train"
     get = registry.get_reduced_config if reduced else registry.get_config
     overrides = {"loss_chunk": min(1024, seq_len)}
-    if hasattr(get(arch), "fsdp_hints"):
+    base = get(arch)
+    if hasattr(base, "fsdp_hints"):
         overrides["fsdp_hints"] = train_cell
-    if hasattr(get(arch), "attn_impl"):
+    if registry.family(base) in ATTN_IMPL_FAMILIES:
         # the reference's dry-run setting: the calls no kernel takes
-        # (windowed prefill) run the online-softmax over KV blocks
+        # (windowed prefill) run the online-softmax over KV blocks; a
+        # config without the field makes `get` raise TypeError
         overrides["attn_impl"] = "chunked"
     cfg = get(arch, **overrides)
     fns = registry.model_fns(cfg)
@@ -257,7 +272,8 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
             "seq_len": seq_len, "global_batch": global_batch,
             "multi_pod": multi_pod, "tokens_per_step": tokens_n,
             "params": cfg.param_count(),
-            "active_params": cfg.active_param_count()}
+            "active_params": cfg.active_param_count(),
+            "attn_impl": getattr(cfg, "attn_impl", None)}
     bspec = (batch_axes(multi_pod),)
 
     if kind == "train":
@@ -446,7 +462,8 @@ def measure(fn, args, device: str) -> dict:
            "bytes": {"aten": nbytes.bytes,
                      "kernels": sum(v["bytes"] for v in kernels.values())},
            "query_splits": splits,
-           "collectives": coll.collective_bytes(),
+           "collectives": {**coll.collective_bytes(),
+                           "by_site": coll.by_site()},
            "collectives_loop_aware": collective_bytes_loop_aware(
                coll.records)}
     out["flops"]["total"] = out["flops"]["aten"] + out["flops"]["kernels"]
@@ -730,7 +747,8 @@ def _simulated_outer(d, dcfg, mask, comp, topk_frac, wire):
 # --------------------------------------------------------------------------
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None,
+                    help="one arch: --shape's cell, or all of its shapes")
     ap.add_argument("--shape", default=None,
                     choices=sorted(registry.SHAPES))
     ap.add_argument("--mesh", default="both",
@@ -779,8 +797,10 @@ def main(argv=None):
         cells = registry.cells()
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
+    elif args.arch:
+        cells = registry.cells([args.arch])
     else:
-        raise SystemExit("--arch and --shape, or --all")
+        raise SystemExit("--arch [--shape], or --all")
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     failures = []

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.hints import is_dtensor
 from repro_torch.kernels._boundary import (heads_local_map, length_sharded,
@@ -154,7 +155,12 @@ def attention_chunked(q, k, v, *, causal: bool = True, window=None,
     (the flash recurrence, in f32): peak memory per block is (B, H, Sq,
     kv_block) instead of (B, H, Sq, Skv).  Arguments as `attention_ref`;
     Skv need not be a multiple of `kv_block` (the tail block is padded and
-    masked)."""
+    masked).  While grad is enabled each block's step runs under
+    `checkpoint` (the reference's `jax.checkpoint` with
+    `nothing_saveable`): autograd keeps a block's inputs, the running
+    accumulator, max and sum, and recomputes its scores in the backward
+    pass, so no block's (B, H, Sq, kv_block) temporaries outlive it.  The
+    values, forward and gradients, are the same either way."""
     b, sq, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     k, v = repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
@@ -168,10 +174,8 @@ def attention_chunked(q, k, v, *, causal: bool = True, window=None,
         kv_len = torch.as_tensor(kv_len, device=q.device)
         if kv_len.dim() == 1 and qpos.dim() == 1:
             qpos = qpos.expand(b, sq)     # a per-row mask for (B,) kv_len
-    acc = torch.zeros(b, h, sq, dh, dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, sq), float("-inf"), device=q.device)
-    l = torch.zeros(b, h, sq, device=q.device)
-    for i in range(k.shape[1] // kv_block):
+
+    def step(i, qf, k, v, acc, m, l):
         kc = k[:, i * kv_block:(i + 1) * kv_block].float()
         vc = v[:, i * kv_block:(i + 1) * kv_block].float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kc)
@@ -188,7 +192,19 @@ def attention_chunked(q, k, v, *, causal: bool = True, window=None,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc)
-        m = m_new
+        return acc, m_new, l
+
+    acc = torch.zeros(b, h, sq, dh, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l = torch.zeros(b, h, sq, device=q.device)
+    for i in range(k.shape[1] // kv_block):
+        if torch.is_grad_enabled():
+            # no dropout: no RNG state to stash and replay
+            acc, m, l = checkpoint(step, i, qf, k, v, acc, m, l,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            acc, m, l = step(i, qf, k, v, acc, m, l)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(v.dtype)
 

@@ -54,6 +54,16 @@ def _config_module(arch: str):
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 
 
+def family(cfg) -> str:
+    """The name of the model module that serves a config of this type."""
+    for klass, modname in _FAMILIES.items():
+        if isinstance(cfg, klass):
+            return modname
+    raise KeyError(f"no model family registered for config type "
+                   f"{type(cfg).__name__}; registered families: "
+                   f"{sorted(k.__name__ for k in _FAMILIES)}")
+
+
 def model_fns(cfg) -> SimpleNamespace:
     """Config dataclass -> the model module's interface: init / forward /
     loss_fn, the serving pair init_cache / decode_step, cast_params (the
@@ -61,14 +71,7 @@ def model_fns(cfg) -> SimpleNamespace:
     reference's params, exported with `np.asarray`, as port tensors) and
     decode_spec (models/decode_state.py), the per-slot state spec the
     engine uses."""
-    for klass, modname in _FAMILIES.items():
-        if isinstance(cfg, klass):
-            mod = importlib.import_module(modname)
-            break
-    else:
-        raise KeyError(f"no model family registered for config type "
-                       f"{type(cfg).__name__}; registered families: "
-                       f"{sorted(k.__name__ for k in _FAMILIES)}")
+    mod = importlib.import_module(family(cfg))
     from .decode_state import decode_spec
     return SimpleNamespace(init=mod.init_params, forward=mod.forward,
                            loss_fn=mod.loss_fn, init_cache=mod.init_cache,

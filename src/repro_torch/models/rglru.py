@@ -13,7 +13,9 @@ scan kernel B4 (`kernels/rglru_scan`: the CUDA kernel for CUDA tensors,
 its plain sequential version for CPU tensors), and as an O(1) state update
 in decode.  The reference picks its scan through `scan_impl`; the port has
 no switch.  Local attention decodes over a W-slot ring, one row per query,
-through the dense decode-attention kernel B1.
+through the dense decode-attention kernel B1; over a whole sequence it
+runs the plain windowed attention, or with `attn_impl="chunked"` (the
+dry run's setting, as the reference's) the online softmax over KV blocks.
 
 Parameters are a nested dict in the reference's layout: "rec_a", "rec_b"
 and "attn" with a leading n_groups axis, "tail" with a leading
@@ -63,6 +65,7 @@ class RGLRUConfig:
     param_dtype: str = "float32"
     remat: bool = True
     loss_chunk: int = 0                # seq-chunked xent (0 = off)
+    attn_impl: str = "ref"             # "chunked": prefill over KV blocks
 
     @property
     def hd(self) -> int:
@@ -254,7 +257,8 @@ def _attn_block(cfg: RGLRUConfig, x, lp, cache=None, pos0=0, lens=None):
         cos, sin = rope_cos_sin(torch.arange(s, device=x.device), hd,
                                 cfg.rope_base, cfg.cdtype)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        attn = attention(q, k, v, causal=True, window=cfg.window)
+        attn = attention(q, k, v, impl=cfg.attn_impl, causal=True,
+                         window=cfg.window)
         if lens is not None:
             W = cfg.window
             last = torch.clamp(lens - 1, min=0)[:, None]

@@ -621,6 +621,12 @@ def _scan_inputs(device, b, s, d, dtype, seed, off=0):
     (3, 1001, 2600, "float32"),     # S, D off the stage and tile sizes
     (2, 2048, 2560, "bfloat16"),
     (2, 300, 77, "bfloat16"),       # odd D: widened to f32 (cp.async)
+    # recurrentgemma-2b prefill_32k on a rank of (16, 16): 2 rows, 32,768
+    # steps, 2560 / 16 channels (two channel tiles)
+    (2, 32768, 160, "float32"),
+    # recurrentgemma-2b train_4k on a rank of (16, 16): a microbatch's 8
+    # rows, 4,096 steps, 160 channels
+    (8, 4096, 160, "float32"),
 ])
 def test_rglru_scan_kernel_matches_plain(cuda_device, b, s, d, dtype):
     """B4 against the plain version: bitwise at f32 (the same two
@@ -746,6 +752,7 @@ def _bits(t):
     (2, 16, 128, "float32", 0),       # one whole stage
     (2, 1, 128, "float32", 0),        # S = 1: dh = g, da = g * 0.0
     (8, 1024, 4, "float32", 0),       # xLSTM's prefix sums (H 4)
+    (8, 4096, 160, "float32", 0),     # recurrentgemma-2b train_4k's rank
     (1, 512, 256, "bfloat16", 0),
     (2, 300, 77, "bfloat16", 0),
 ])

@@ -29,9 +29,9 @@ torch.set_num_threads(1)
 # logits and states, 1e-5 relative for the loss and its gradients
 TOL_MODEL = 1e-4
 ARCH = "recurrentgemma-2b"
-# reference fields the port has no reader for: the scan/attention switches,
-# sharding hints and the decode-length hint
-DROPPED = {"scan_impl", "attn_impl", "fsdp_hints", "max_decode_len"}
+# reference fields the port has no reader for: the scan switch, sharding
+# hints and the decode-length hint
+DROPPED = {"scan_impl", "fsdp_hints", "max_decode_len"}
 
 
 def _t(a):
@@ -232,6 +232,54 @@ def test_loss_and_grads_match_reference(model, loss_chunk):
     tcfg = dataclasses.replace(tcfg, loss_chunk=loss_chunk)
     rng = np.random.default_rng(4)
     toks = rng.integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    jloss, jg = jax.value_and_grad(jrg.loss_fn)(
+        jparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
+        jcfg)
+    flat = {k: v.detach().clone().requires_grad_()
+            for k, v in _leaves(tparams).items()}
+    params = {k: ({kk: flat[f"{k}/{kk}"] for kk in v} if isinstance(v, dict)
+                  else flat[k]) for k, v in tparams.items()}
+    tloss = trg.loss_fn(params, {"tokens": _t(toks), "labels": _t(labels)},
+                        tcfg)
+    grads = torch.autograd.grad(tloss, list(flat.values()))
+    assert tloss.item() == pytest.approx(float(jloss), rel=1e-5)
+    jflat = {k: np.asarray(v) for k, v in _leaves(jg).items()}
+    for name, g in zip(flat, grads):
+        want = jflat[name]
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+def _chunked(model):
+    jcfg, tcfg, jparams, tparams = model
+    return (dataclasses.replace(jcfg, attn_impl="chunked"),
+            dataclasses.replace(tcfg, attn_impl="chunked"), jparams, tparams)
+
+
+def test_forward_with_chunked_attention_matches_reference(model):
+    """attn_impl="chunked" (the dry run's setting): the windowed attention
+    runs the online softmax over 512-position KV blocks on both sides; 600
+    tokens make two blocks, the second padded, and the 16-token window
+    masks most of each."""
+    jcfg, tcfg, jparams, tparams = _chunked(model)
+    toks, _ = _prompts(seed=7, b=2, s=600)
+    want = jrg.forward(jparams, jnp.asarray(toks), jcfg)
+    with torch.no_grad():
+        got = trg.forward(tparams, _t(toks), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=TOL_MODEL, rtol=TOL_MODEL)
+
+
+def test_loss_and_grads_with_chunked_attention_match_reference(model):
+    """loss_fn and its gradients with attn_impl="chunked" at 520 tokens
+    (two KV blocks): the group's remat around each block's own checkpoint
+    on the port's side, jax.checkpoint inside the scan on the reference's;
+    1e-5 relative."""
+    jcfg, tcfg, jparams, tparams = _chunked(model)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 520)).astype(np.int32)
     labels = np.roll(toks, -1, axis=1)
     jloss, jg = jax.value_and_grad(jrg.loss_fn)(
         jparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
